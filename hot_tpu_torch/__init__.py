@@ -7,10 +7,12 @@ device the tensors live on; on CPU tensors the same functions run their
 plain PyTorch versions. Module names follow ``hot_tpu`` so each function's
 counterpart is easy to find:
 
-  ops       B-splines, SVD, transfers; fused_apply / fused_linearize (the
-            CUDA kernels, counterparts of pallas_apply / pallas_linearize)
+  ops       B-splines, SVD, transfers; fused_apply / fused_linearize /
+            bsr_spmv (the CUDA kernels, counterparts of pallas_apply /
+            pallas_linearize / bsr_tiled.spmv_T); BSR assembly and the
+            Galerkin RAP (bsr, spgemm)
   models    fixed-corotated and StVK-Hencky in singular-value space
-  solver    projected CG and inexact Newton
+  solver    projected CG, inexact Newton, node-embedding multigrid
   sim       state, seeding, colliders, the objective and the time step
   scenes    block_drop_2d and twisting_bar_3d
   utils     config tree, metrics, timers

@@ -37,6 +37,9 @@ _SIGNATURES = {
     "hot_fused_linearize": [ctypes.c_int] * 3 + [_P] * 7
                            + [ctypes.c_double, ctypes.c_int] + [_P] * 6
                            + [ctypes.c_longlong, _P],
+    # (dtype, dim, vals, col_row, x, y, n_rows, K, stream)
+    "hot_bsr_spmv": [ctypes.c_int, ctypes.c_int] + [_P] * 4
+                    + [ctypes.c_longlong, ctypes.c_int, _P],
 }
 
 

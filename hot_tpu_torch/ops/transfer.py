@@ -65,6 +65,18 @@ def n_nodes_of(res) -> int:
     return n
 
 
+def unravel(node_ids, res):
+    """Flat row-major ids -> integer coords (..., dim)."""
+    strides = _row_major_strides(res, node_ids.device)
+    coords = []
+    rem = node_ids
+    for k in range(len(res)):
+        c = torch.div(rem, strides[k], rounding_mode="floor")
+        rem = rem - c * strides[k]
+        coords.append(c)
+    return torch.stack(coords, dim=-1)
+
+
 def node_positions(res, dx: float, dtype=torch.float32, device="cpu"):
     """(n_nodes, dim) physical positions of all grid nodes (node i at i*dx)."""
     axes = [torch.arange(int(r), device=device) for r in res]

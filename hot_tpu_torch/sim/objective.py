@@ -77,13 +77,18 @@ def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
     f_char = transfer.scatter_sum(stencil.node_ids, stencil.wn * stiff[:, None], n_nodes)
     cn_scale = torch.maximum(dt * f_char, grid_m * dx / dt)
     cn_scale = torch.where(active, cn_scale, torch.ones_like(cn_scale))
+    node_ids_soa, gwn_soa = stencil_soa(stencil)
     return ObjectiveContext(
         stencil=stencil, F_n=F_n, V0=V0, mu=mu, lam=lam, grid_m=grid_m,
         v_star=v_star, active=active, proj=proj, dt=dt, cn_scale=cn_scale,
-        node_ids_soa=soa(stencil.node_ids.to(torch.int32)),
-        gwn_soa=soa(stencil.gwn),
-        F_soa=soa(F_n),
+        node_ids_soa=node_ids_soa, gwn_soa=gwn_soa, F_soa=soa(F_n),
     )
+
+
+def stencil_soa(stencil):
+    """(node_ids (s, n) int32, gwn (s*d, n)): a stencil in the fused
+    kernels' SoA layout."""
+    return soa(stencil.node_ids.to(torch.int32)), soa(stencil.gwn)
 
 
 def updated_F(obj: ObjectiveContext, v):
@@ -127,7 +132,8 @@ def linearize(model, obj: ObjectiveContext, v, project_spd: bool = True):
 def elastic_hessian_apply(node_ids_soa, gwn_soa, F_soa, hess: HessianState, V0,
                           dt: float, grid_m, active, w):
     """Matrix-free (M + dt^2 K) w through ``ops.fused_apply``; the identity
-    on inactive nodes."""
+    on inactive nodes. The stencil may be any level's (``stencil_soa`` of
+    a multigrid level's particle stencil), with that level's mass and mask."""
     df = fused_apply(w, node_ids_soa, gwn_soa, F_soa, hess.U, hess.V, hess.A,
                      hess.b_plus, hess.b_minus, V0, dt)
     out = grid_m[:, None] * w - dt * df

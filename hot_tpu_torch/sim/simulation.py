@@ -1,14 +1,20 @@
 """The implicit MPM time step and the frame loop.
 
-Counterpart of ``hot_tpu.sim.simulation`` for the dense grid, the implicit
-backward-Euler integrator with inexact Newton, and the matrix-free Hessian:
-P2G -> grid BC -> Newton {linearize -> preconditioner -> CG {Hessian apply}}
--> G2P -> F update -> advection. The per-particle linearization and Hessian
-apply run in the fused kernels whenever the state lives on a CUDA device.
+Counterpart of ``hot_tpu.sim.simulation`` for the dense grid and the
+implicit backward-Euler integrator with inexact Newton: P2G -> grid BC ->
+Newton {linearize -> preconditioner -> CG {Hessian apply}} -> G2P -> F
+update -> advection. The Hessian is matrix-free (``ops.fused_apply``) or,
+with ``matrix_free=False``, an explicit BSR operator assembled once per
+Newton iteration (``ops.bsr``, applied by ``ops.bsr_spmv``). The
+preconditioner is none, mass Jacobi, block-Jacobi or HOT's multigrid
+(``solver.multigrid``: matrix-free quadrature levels or assembled levels
+with Galerkin or quadrature coarsening). The kernels run whenever the state
+lives on a CUDA device.
 
 The step is eager PyTorch; dt is a Python float. Not ported yet (they raise
 NotImplementedError): the sparse grid, cubic transfers, the explicit
-integrator, LBFGS, the assembled (BSR) Hessian, multigrid, plasticity.
+integrator, LBFGS, MINRES, line search, the composed Galerkin multigrid
+level, plasticity.
 """
 
 from __future__ import annotations
@@ -19,11 +25,13 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from hot_tpu_torch.models import constitutive as cm
+from hot_tpu_torch.ops import bsr
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bspline import apic_d_inv_factor
 from hot_tpu_torch.sim import collision
 from hot_tpu_torch.sim import objective as obj_mod
 from hot_tpu_torch.sim.state import ParticleState
+from hot_tpu_torch.solver import multigrid as mg_mod
 from hot_tpu_torch.solver.newton import newton_solve
 from hot_tpu_torch.utils.config import SimConfig
 from hot_tpu_torch.utils.metrics import MetricsLogger
@@ -44,13 +52,17 @@ class StepStats(NamedTuple):
 
 def _check_supported(cfg: SimConfig, plasticity):
     sol = cfg.solver
+    mgc = sol.multigrid
     unsupported = [
         (cfg.grid_backend != "dense", f"grid_backend='{cfg.grid_backend}'"),
         (cfg.transfer_kernel != "quadratic", f"transfer_kernel='{cfg.transfer_kernel}'"),
         (sol.integrator != "implicit", f"integrator='{sol.integrator}'"),
         (sol.nonlinear != "newton", f"nonlinear='{sol.nonlinear}'"),
-        (not sol.matrix_free, "matrix_free=False (assembled BSR Hessian)"),
-        (sol.preconditioner == "multigrid", "preconditioner='multigrid'"),
+        (sol.linear_solver != "cg", f"linear_solver='{sol.linear_solver}'"),
+        (sol.line_search, "line_search=True"),
+        (sol.preconditioner == "multigrid" and mgc.assembled and mgc.coarsening == "galerkin"
+         and mgc.assembled_from_level > 0,
+         "composed Galerkin multigrid (assembled_from_level > 0, coarsening='galerkin')"),
         (plasticity is not None, f"plasticity='{plasticity}'"),
     ]
     for bad, what in unsupported:
@@ -87,36 +99,79 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     # ---- grid BC
     gravity = torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device)
     v_star = v_grid + dt * gravity[None, :]
-    proj, v_bc, _ = collision.grid_boundary_conditions(
+    proj, v_bc, constrained = collision.grid_boundary_conditions(
         node_pos, t, colliders, grid_v=v_star, boundary_margin=2, res=res, dx=dx)
     v0 = collision.apply_bc_to_velocity(v_star, proj, v_bc)
 
-    # ---- implicit solve
+    # ---- implicit solve: the Hessian state is (per-particle context, BSR or None)
     objective = obj_mod.make_objective(model, st, state.F, state.V0, state.mu, state.lam,
                                        grid_m, v_star, proj, dt, dx)
+
+    def lin_particles(v):
+        return obj_mod.linearize(model, objective, v, project_spd=sol.project_hessian)
+
+    if sol.matrix_free:
+        def linearize(v):
+            r, hess = lin_particles(v)
+            return r, (hess, None)
+
+        multiply = lambda hp, w: obj_mod.multiply(objective, hp[0], w)  # noqa: E731
+    else:
+        # explicit outer Hessian, assembled once per Newton iteration
+        mat0 = bsr.structure(active, res, dtype=dtype)
+
+        def linearize(v):
+            r, hess = lin_particles(v)
+            return r, (hess, bsr.assemble_hessian(mat0, st, state.F, hess.context(dim),
+                                                  state.V0, dt, grid_m))
+
+        def multiply(hp, w):
+            mat = hp[1]
+            y = bsr.rows_to_grid_vector(mat, bsr.spmv(mat, bsr.grid_vector_to_rows(mat, w)),
+                                        n_nodes)
+            return torch.where(active[:, None], y, w)
+
+    refresh_precond = None
     if sol.preconditioner == "none":
-        build_precond = lambda hess: None  # noqa: E731
+        build_precond = lambda hp: None  # noqa: E731
         precond = lambda pstate, r: r  # noqa: E731
     elif sol.preconditioner == "jacobi":
-        build_precond = lambda hess: None  # noqa: E731
+        build_precond = lambda hp: None  # noqa: E731
         precond = lambda pstate, r: obj_mod.mass_precondition(objective, r)  # noqa: E731
     elif sol.preconditioner == "block_jacobi":
-        def build_precond(hess):
-            D = obj_mod.elastic_block_diag(st, state.F, hess.context(dim), state.V0, dt,
+        def build_precond(hp):
+            D = obj_mod.elastic_block_diag(st, state.F, hp[0].context(dim), state.V0, dt,
                                            grid_m, active, dim)
             return obj_mod.sym_block_inv(D)
 
         precond = lambda Dinv, r: torch.einsum("nij,nj->ni", Dinv, r)  # noqa: E731
+    elif sol.preconditioner == "multigrid":
+        mgc = sol.multigrid
+        mg_static = mg_mod.build_static(
+            state.x, state.m, res, dx, mgc.levels, constrained, dtype,
+            assembled_from=mgc.assembled_from_level if mgc.assembled else None)
+
+        def build_precond(hp):
+            return mg_mod.build_precond(mg_static, state.F, hp[0], state.V0, dt, mgc, dim)
+
+        if mgc.rap_refresh == "lagged" and mgc.assembled:
+            # first assembled level and smoother data fresh per Newton
+            # iteration; the deeper Galerkin chain and coarse factor from v0
+            def refresh_precond(hp, base):
+                return mg_mod.build_precond(mg_static, state.F, hp[0], state.V0, dt, mgc, dim,
+                                            reuse=base)
+
+        precond = lambda pre, r: mg_mod.mg_precondition(mg_static, pre, dt, mgc, r)  # noqa: E731
     else:
         raise ValueError(f"unknown preconditioner '{sol.preconditioner}'")
 
     result = newton_solve(
-        linearize=lambda v: obj_mod.linearize(model, objective, v,
-                                              project_spd=sol.project_hessian),
-        multiply=lambda hess, w: obj_mod.multiply(objective, hess, w),
+        linearize=linearize,
+        multiply=multiply,
         project=lambda r: obj_mod.project(objective, r),
         precondition=precond,
         build_preconditioner=build_precond,
+        refresh_preconditioner=refresh_precond,
         cn_norm=lambda r: obj_mod.cn_norm(objective, r),
         v0=v0,
         max_newton=sol.max_newton,

@@ -5,7 +5,7 @@ Counterpart of ``hot_tpu.solver.newton.newton_solve``, as a host loop:
     solve H_k dv = -r_k by preconditioned CG to forcing tolerance eta_k
     v_{k+1} = v_k + dv
 with eta_k = clip(sqrt(cn_k / cn_0), cg_tol, 0.5) when adaptive_forcing.
-Line search, partial preconditioner refresh and MINRES are not ported yet.
+Line search and MINRES are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,14 +41,14 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     linearize(v) -> (r, hess) evaluates both at once; without it,
     residual(v) and build_hessian(v) are called. precond_refresh "newton"
     rebuilds the preconditioner at every iterate, "step" builds it once at
-    v0 and reuses it.
+    v0 and reuses it. With refresh_preconditioner(hess, base) and "newton",
+    a base is built once at v0 and each iterate refreshes part of it (the
+    lagged Galerkin chain of MultigridConfig.rap_refresh="lagged").
     """
     if linear_solver != "cg":
         raise NotImplementedError(f"linear_solver='{linear_solver}' is not ported yet")
     if line_search:
         raise NotImplementedError("line search is not ported yet")
-    if refresh_preconditioner is not None:
-        raise NotImplementedError("partial preconditioner refresh is not ported yet")
     if axis_name is not None:
         raise NotImplementedError("distributed Newton is not ported yet")
     if precond_refresh not in ("newton", "step"):
@@ -60,14 +60,20 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     r, hess = linearize(v)
     cn0 = cn_norm(r)
     cn = cn0
-    frozen = build_preconditioner(hess) if precond_refresh == "step" else None
+    partial = refresh_preconditioner is not None and precond_refresh == "newton"
+    frozen = build_preconditioner(hess) if precond_refresh == "step" or partial else None
     history = [float(cn0)]
     k = cg_total = 0
     while k < max_newton:
         cn_f, rnorm = torch.stack([cn, torch.sqrt(torch.sum(r * r))]).tolist()
         if not (cn_f > cn_eps and rnorm > abs_tol):
             break
-        pstate = frozen if precond_refresh == "step" else build_preconditioner(hess)
+        if precond_refresh == "step":
+            pstate = frozen
+        elif partial:
+            pstate = refresh_preconditioner(hess, frozen)
+        else:
+            pstate = build_preconditioner(hess)
         if adaptive_forcing:
             eta = torch.clamp(torch.sqrt(cn / torch.clamp(cn0, min=1e-30)), cg_tol, 0.5)
         else:

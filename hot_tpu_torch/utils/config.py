@@ -21,8 +21,13 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class MultigridConfig:
     """Node-embedding multigrid knobs (reference flags -mg_level, --mg_times,
-    --smoother, --coarseSolver). The multigrid preconditioner itself is not
-    ported yet; the fields exist so configs round-trip between packages."""
+    --smoother, --coarseSolver), read by ``solver.multigrid``.
+
+    The port sizes every assembled level to its active nodes, so
+    ``coarse_capacity`` has nothing to bound and is not read; neither is
+    ``sparse_dense_switch`` (the sparse grid is not ported). The composed
+    Galerkin first level (``assembled_from_level > 0`` with
+    ``coarsening="galerkin"``) raises NotImplementedError."""
 
     levels: int = 3
     cycles: int = 1

@@ -3,7 +3,8 @@ against the kernels' plain PyTorch versions.
 
 A small stand-in for the CUDA runtime turns each launch into a loop over
 blocks and threads (atomicAdd becomes a plain add), so the kernels' own
-per-particle code runs on the CPU at 16^3 / 24^2. This cannot show that
+per-particle code runs on the CPU at 16^3 / 24^2; warp shuffles are
+emulated for the one-warp-per-row SpMV (see SHIM). This cannot show that
 nvcc accepts the sources or that they are right on the card; chip_smoke.py
 and the `cuda`-marked tests do that.
 
@@ -24,25 +25,43 @@ import torch
 from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
 from hot_tpu_torch.ops import cuda_lib, transfer
 from hot_tpu_torch.ops import fused_apply as fa
+from hot_tpu_torch.ops.bsr_spmv import bsr_spmv_plain
 from hot_tpu_torch.ops import fused_linearize as fl
 from hot_tpu_torch.scenes import build_scene
 
 SHIM = r"""
 #pragma once
+#include <array>
+#include <vector>
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 inline thread_local Dim3 blockIdx, threadIdx, blockDim;
 #define __global__
+#define __device__
+#define __forceinline__ inline
 #define __launch_bounds__(x)
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
 template <typename T> inline T atomicAdd(T* p, T v) { T old = *p; *p += v; return old; }
+template <typename T> inline T __ldg(const T* p) { return *p; }
+// Lanes run one after another, so a shuffle returns what the partner lane
+// passed at the same call if that lane has already run (a lower lane), and
+// stale data otherwise. After an xor butterfly the LAST lane holds the full
+// sum (its partners at every step are lower lanes), so kernels store from it.
+inline thread_local int shfl_calls = 0;
+template <typename T> inline T __shfl_xor_sync(unsigned, T v, int mask) {
+  static std::vector<std::array<T, 32>> slots;
+  const unsigned lane = threadIdx.x % 32, call = shfl_calls++;
+  if (slots.size() <= call) slots.resize(call + 1);
+  slots[call][lane] = v;
+  return slots[call][lane ^ mask];
+}
 template <typename Fn, typename... Args>
 inline void host_launch(unsigned blocks, unsigned threads, Fn fn, Args... args) {
   blockDim.x = threads;
   for (unsigned b = 0; b < blocks; ++b) {
     blockIdx.x = b;
-    for (unsigned t = 0; t < threads; ++t) { threadIdx.x = t; fn(args...); }
+    for (unsigned t = 0; t < threads; ++t) { threadIdx.x = t; shfl_calls = 0; fn(args...); }
   }
 }
 """
@@ -132,9 +151,30 @@ def test_host_compiled_kernels_match_plain(host_lib, rng, d, model_name, dtype):
     assert _rel(df, fa.fused_apply_plain(w, ids, gwn, F, *ctx, V0, DT)) <= tol_apply
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d,K", [(3, 125), (3, 729), (2, 25), (2, 81)])
+def test_host_compiled_bsr_spmv_matches_plain(host_lib, rng, d, K, dtype):
+    """Rows of K blocks (K not a multiple of the warp: tail lanes), about a
+    third of the columns absent, and a row count that is not a multiple of
+    the four warps of a block."""
+    R = 1003
+    vals = torch.as_tensor(rng.standard_normal((R, K, d, d)), dtype=dtype)
+    col = rng.integers(0, R, (R, K))
+    col[rng.random((R, K)) < 0.3] = -1
+    col_row = torch.as_tensor(col, dtype=torch.int32)
+    x = torch.as_tensor(rng.standard_normal((R, d)), dtype=dtype)
+    y = torch.full((R, d), float("nan"), dtype=dtype)
+    code = 0 if dtype == torch.float32 else 1
+    rc = host_lib.hot_bsr_spmv(code, d, vals.data_ptr(), col_row.data_ptr(), x.data_ptr(),
+                               y.data_ptr(), R, K, None)
+    assert rc == 0
+    assert _rel(y, bsr_spmv_plain(vals, col_row, x)) <= TOL[dtype][0]
+
+
 def test_unsupported_dim_is_refused(host_lib):
     z = torch.zeros(1)
     assert host_lib.hot_fused_apply(0, 4, *[z.data_ptr()] * 10, DT, z.data_ptr(), 1,
                                     None) != 0
     assert host_lib.hot_fused_linearize(7, 0, 3, *[z.data_ptr()] * 7, DT, 1,
                                         *[z.data_ptr()] * 6, 1, None) != 0
+    assert host_lib.hot_bsr_spmv(0, 4, *[z.data_ptr()] * 4, 1, 125, None) != 0

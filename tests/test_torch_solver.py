@@ -104,7 +104,7 @@ def test_newton_matches_hot_tpu(adaptive_forcing, precond_refresh):
 
 
 @pytest.mark.parametrize("option", [dict(linear_solver="minres"), dict(line_search=True),
-                                    dict(refresh_preconditioner=lambda h, p: p),
+                                    dict(line_search=True, precond_refresh="step"),
                                     dict(axis_name="x")])
 def test_unported_newton_options_raise(rng, option):
     with pytest.raises(NotImplementedError):
@@ -114,7 +114,9 @@ def test_unported_newton_options_raise(rng, option):
 @pytest.mark.parametrize("overrides", [
     {"grid_backend": "sparse"}, {"transfer_kernel": "cubic"},
     {"solver.integrator": "explicit"}, {"solver.nonlinear": "lbfgs"},
-    {"solver.matrix_free": False}, {"solver.preconditioner": "multigrid"}])
+    {"solver.linear_solver": "minres"},
+    {"solver.preconditioner": "multigrid", "solver.multigrid.assembled": True,
+     "solver.multigrid.assembled_from_level": 1}])
 def test_unported_configs_raise(overrides):
     scene = tbuild("block_drop_2d", device="cpu", res=16)
     cfg = t_overrides(scene["cfg"], overrides)

@@ -10,15 +10,25 @@ Phases, each printing one JSON line:
   3 kernels   each CUDA kernel against its plain PyTorch version on the card:
               the particle kernels on the 64^3 twisting bar (both models, F
               perturbed by seeded noise) and a 64^2 block drop, in fp32 and
-              fp64; bsr_spmv on the four operators of the 64^3 config-3
-              multigrid hierarchy (K = 125, 343, 729, 729), in fp32 and fp64,
-              beside torch.sparse_bsr_tensor @ x; errors, each kernel's
-              device time per launch (torch.profiler) and CUDA-event times
-              of whole calls (the kernel's wrapper, its plain version, the
-              library call)
+              fp64, and on the 64^3 bar with its particles in a random order
+              (the blocks' node windows overflow: the share that took the
+              global-atomic branch); bsr_spmv on the four operators of the
+              64^3 config-3 multigrid hierarchy (K = 125, 343, 729, 729), in
+              fp32 and fp64, beside torch.sparse_bsr_tensor @ x; errors, each
+              kernel's device time per launch (torch.profiler) and CUDA-event
+              times of whole calls (the kernel's wrapper, its plain version,
+              the library call)
+  3b timing   the particle kernels at 64^3 and 128^3 (fp32, fixed-corotated):
+              device time, plain time, the bound from the run's inputs (x and
+              the touched nodes) beside the stencil-table input set's; with
+              --baseline DIR, the kernels built from DIR (an earlier csrc/)
+              on the same particles, in turns; and a sweep of block size and
+              window budget
   4 main      Simulation.step x12 at 64^3 (ppc 8, dt 2e-3, fp32, block-Jacobi):
               finite, converged, and the kernels' launch counters equal
-              sum(newton + 1) and sum(cg + newton)
+              sum(newton + 1) and sum(cg + newton); the particle kernels'
+              window counters (box sizes, overflow share, global atomics per
+              launch)
   5 mg        the same 12 steps under config 3 (assembled Galerkin multigrid,
               4 levels, Chebyshev, direct coarse solve): finite, converged,
               no dt retry, and all three launch counters equal the counts
@@ -34,13 +44,21 @@ Phases, each printing one JSON line:
 Then the kernels' summary and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; it needs a CUDA device and exits
 non-zero without one.
+
+    python3 chip_smoke.py --baseline build/baseline_csrc
+
+also times the particle kernels of an earlier csrc/ (its C interface takes
+the stencil as node ids and weight gradients), for the record in PERF.md.
 """
 
+import argparse
+import ctypes
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -65,11 +83,28 @@ SPMV_TOL = {torch.float32: 2e-5, torch.float64: 1e-10}
 # fp32 (non-tensor-core) flop/s; fp64 runs at half the fp32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# flops per particle counted from the kernels' sources (3D, rounded up):
-# apply: gather 162, chain ~250, scatter 162; linearize: gather 162, two
-# 3x3 Jacobi eigensolves of 6 sweeps ~2200, QR, model and clamp ~500,
-# stress scatter 162
-FLOPS_PER_PARTICLE = {"fused_apply": 600, "fused_linearize": 3100}
+# flops per 3D particle, counted from the kernels' sources (a multiply-add
+# is 2, a division or square root 1):
+#   apply: stencil 60, node weights 2 x 108, gather 486, chain 324, scatter
+#     486: about 1,600;
+#   linearize: stencil 60, node weights 2 x 108, gather 486, F_new 63, SVD
+#     (F^T F, 6 Jacobi sweeps of 3 rotations, F V, Givens QR) 1,440, model
+#     and b+ 110, the positive-definiteness test of sym(A) 20, P and P F^T
+#     117, scatter 486: about 3,030 (fixed-corotated); plus 1,290 for the
+#     clamp's eigensolve (6 sweeps and the product back) where sym(A) is not
+#     positive definite, counted on each run's inputs
+FLOPS_PER_PARTICLE = {"fused_apply": 1600, "fused_linearize": 3030}
+CLAMP_FLOPS = 1290
+# the C interface of the earlier particle kernels (--baseline), which took
+# the stencil as a table: node ids (s, n) int32 and weight gradients (s*d, n)
+TABLE_SIGNATURES = {
+    "hot_fused_apply": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_double, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p],
+    "hot_fused_linearize": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                           + [ctypes.c_double, ctypes.c_int] + [ctypes.c_void_p] * 6
+                           + [ctypes.c_longlong, ctypes.c_void_p],
+}
+SWEEP = {"threads": (128, 256), "window_nodes": (0, 512, 1024, 1536, 2048)}
 CONFIG3 = {"solver.preconditioner": "multigrid", "solver.multigrid.levels": 4,
            "solver.multigrid.smoother": "chebyshev", "solver.multigrid.coarse_solver": "direct",
            "solver.multigrid.assembled": True}
@@ -122,18 +157,27 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def particle_kernel_bytes(name, n, n_nodes, d, itemsize):
-    """Bytes each input read once and each output written once: the
-    per-particle SoA arrays, the node ids (int32), and one grid vector in
-    (w or v) and one out (df or f)."""
+def _per_particle_values(name, d):
+    dd, pairs = d * d, 1 if d == 2 else 3
+    if name == "fused_apply":   # F, U, V, A, b+, b-, V0
+        return 4 * dd + 2 * pairs + 1
+    return dd + 3 + 3 * dd + 2 * pairs  # in: F, mu, lam, V0; out: U, V, A, b+, b-
+
+
+def particle_kernel_bytes(name, n, touched, d, itemsize):
+    """Bytes each input read once and each output written once: x and the
+    per-particle SoA arrays, and the grid vector read (w or v) and written
+    (df or f) over the `touched` nodes, the unique stencil nodes."""
+    return n * (d + _per_particle_values(name, d)) * itemsize + 2 * touched * d * itemsize
+
+
+def table_kernel_bytes(name, n, n_nodes, d, itemsize):
+    """The same for the stencil-table input set, as its bound counted it:
+    node ids (int32) and weight gradients per particle in place of x, and
+    two whole-grid vectors."""
     s = 3 ** d
-    dd = d * d
-    pairs = 1 if d == 2 else 3
-    if name == "fused_apply":   # gwn, F, U, V, A, b+, b-, V0
-        per = s * d + 4 * dd + 2 * pairs + 1
-    else:                       # in: gwn, F, mu, lam, V0; out: U, V, A, b+, b-
-        per = s * d + dd + 3 + 3 * dd + 2 * pairs
-    return n * (s * 4 + per * itemsize) + 2 * n_nodes * d * itemsize
+    return n * (s * 4 + (s * d + _per_particle_values(name, d)) * itemsize) \
+        + 2 * n_nodes * d * itemsize
 
 
 def copy_rate():
@@ -165,7 +209,7 @@ def mg_hierarchy(dtype, rng):
     eye = torch.eye(3, dtype=dtype, device="cuda")
     obj = obj_mod.make_objective(scene["model"], st, F, state.V0, state.mu, state.lam, grid_m,
                                  torch.zeros((n_nodes, 3), dtype=dtype, device="cuda"),
-                                 eye.expand(n_nodes, 3, 3), DT, cfg.dx)
+                                 eye.expand(n_nodes, 3, 3), DT, cfg.dx, state.x, res)
     _, hess = obj_mod.linearize(scene["model"], obj, obj.v_star)
     mcfg = MultigridConfig(levels=4, smoother="chebyshev", coarse_solver="direct",
                            assembled=True)
@@ -218,61 +262,111 @@ def check_spmv(mats, dtype, rng, timing):
     return rows
 
 
-def kernel_inputs(scene_name, model_name, dtype, rng, res):
+def kernel_inputs(scene_name, model_name, dtype, rng, res, permute=False, noise=0.1):
+    """One input set of the particle kernels: a scene's particles (F
+    perturbed by seeded noise of scale `noise`; in a random order if
+    `permute`), random grid vectors v and w, and the particles' stencil on
+    the grid."""
     from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
     from hot_tpu_torch.ops import transfer
+    from hot_tpu_torch.ops.fused_apply import soa
     from hot_tpu_torch.scenes import build_scene
 
     kw = dict(res=res, ppc=8) if scene_name == "twisting_bar_3d" else dict(res=res)
     state = build_scene(scene_name, device="cuda", dtype=dtype, **kw)["state"]
     d = state.dim
     n = state.n
-    F = state.F + torch.as_tensor(0.1 * rng.standard_normal((n, d, d)), dtype=dtype,
+    x, mu, lam, V0 = state.x, state.mu, state.lam, state.V0
+    F = state.F + torch.as_tensor(noise * rng.standard_normal((n, d, d)), dtype=dtype,
                                   device="cuda")
-    st = transfer.particle_stencil(state.x, 1.0 / res, (res,) * d)
+    if permute:
+        perm = torch.as_tensor(rng.permutation(n), device="cuda")
+        x, F, mu, lam, V0 = (t[perm].contiguous() for t in (x, F, mu, lam, V0))
+    grid = (res,) * d
+    st = transfer.particle_stencil(x, 1.0 / res, grid)
     n_nodes = res ** d
-    s = st.wn.shape[1]
     v = torch.as_tensor(rng.standard_normal((n_nodes, d)), dtype=dtype, device="cuda")
     w = torch.as_tensor(rng.standard_normal((n_nodes, d)), dtype=dtype, device="cuda")
-    return dict(
-        model=MODEL_REGISTRY[model_name], v=v, w=w, F=F,
-        ids=st.node_ids.T.to(torch.int32).contiguous(),
-        gwn=st.gwn.reshape(n, s * d).T.contiguous(),
-        F_soa=F.reshape(n, d * d).T.contiguous(),
-        mu=state.mu, lam=state.lam, V0=state.V0, st=st, n=n, d=d)
+    return dict(model=MODEL_REGISTRY[model_name], v=v, w=w, F=F, x_soa=soa(x), F_soa=soa(F),
+                dx=1.0 / res, res=grid, mu=mu, lam=lam, V0=V0, st=st, n=n, d=d)
 
 
-def check_kernels(case, timing):
-    """Both kernels against their plain versions on one input set."""
+def lin_args(c):
+    return (c["v"], c["x_soa"], c["dx"], c["res"], c["F_soa"], c["mu"], c["lam"], c["V0"], DT,
+            c["model"])
+
+
+def apply_args(c, ctx):
+    return (c["w"], c["x_soa"], c["dx"], c["res"], c["F_soa"], *ctx, c["V0"], DT)
+
+
+class WindowStats:
+    """The particle kernels' window counters over the calls inside."""
+
+    def __enter__(self):
+        from hot_tpu_torch.ops import fused_apply as fa
+        from hot_tpu_torch.ops import fused_linearize as fl
+
+        self.mods = {"fused_apply": fa, "fused_linearize": fl}
+        self.bufs = {k: fa.new_window_stats("cuda") for k in self.mods}
+        self.launches = {k: m.launches for k, m in self.mods.items()}
+        for k, m in self.mods.items():
+            m.window_stats = self.bufs[k]
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods.values():
+            m.window_stats = None
+
+    def read(self):
+        from hot_tpu_torch.ops import fused_apply as fa
+
+        out = {}
+        for k, m in self.mods.items():
+            st = fa.read_window_stats(self.bufs[k])
+            launches = m.launches - self.launches[k]
+            blocks = max(st["blocks"], 1)
+            out[k] = dict(launches=launches, blocks=st["blocks"],
+                          overflow_share=st["overflow_blocks"] / blocks,
+                          mean_window_nodes=st["window_nodes"] / blocks,
+                          max_window_nodes=st["max_window_nodes"],
+                          global_atomics_per_launch=st["global_atomics"] / max(launches, 1),
+                          log2_nodes_histogram=st["log2_nodes_histogram"])
+        return out
+
+
+def check_kernels(case):
+    """Both kernels against their plain versions on one input set; the
+    kernels' window counters of the two checked launches."""
     from hot_tpu_torch.ops import fused_apply as fa
     from hot_tpu_torch.ops import fused_linearize as fl
     from hot_tpu_torch.ops import transfer
 
     c = case
     d, dtype = c["d"], c["v"].dtype
-    lin_args = (c["v"], c["ids"], c["gwn"], c["F_soa"], c["mu"], c["lam"], c["V0"], DT, c["model"])
-    got = fl.fused_linearize_cuda(*lin_args)
-    want = fl.fused_linearize_plain(*lin_args)
-    out = {}
-    for name, g, w in zip(("f", "A", "b_plus", "b_minus"), (got[0], got[3], got[4], got[5]),
-                          (want[0], want[3], want[4], want[5])):
-        out[f"lin_{name}"] = rel_err(g, w)
-    # the kernel's SVD is valid: orthogonal U, V with det +1, and U^T F_new V
-    # diagonal (U, V may differ from the plain SVD by paired column signs)
-    U = got[1].T.reshape(-1, d, d)
-    V = got[2].T.reshape(-1, d, d)
-    eye = torch.eye(d, dtype=dtype, device="cuda")
-    F_new = (eye + DT * transfer.velocity_gradient(c["st"], c["v"])) @ c["F"]
-    S = U.transpose(1, 2) @ F_new @ V
-    off = S - torch.diag_embed(torch.diagonal(S, dim1=1, dim2=2))
-    out["svd_offdiag"] = (float(off.abs().max()), float(off.abs().max() / F_new.abs().max()))
-    out["orth_UV"] = (float(max((U.transpose(1, 2) @ U - eye).abs().max(),
-                                (V.transpose(1, 2) @ V - eye).abs().max())),) * 2
-    out["det_UV"] = (float(max((torch.linalg.det(U) - 1).abs().max(),
-                               (torch.linalg.det(V) - 1).abs().max())),) * 2
-    ctx = want[1:]
-    apply_args = (c["w"], c["ids"], c["gwn"], c["F_soa"], *ctx, c["V0"], DT)
-    out["apply_df"] = rel_err(fa.fused_apply_cuda(*apply_args), fa.fused_apply_plain(*apply_args))
+    with WindowStats() as ws:
+        got = fl.fused_linearize_cuda(*lin_args(c))
+        want = fl.fused_linearize_plain(*lin_args(c))
+        out = {}
+        for name, g, w in zip(("f", "A", "b_plus", "b_minus"), (got[0], got[3], got[4], got[5]),
+                              (want[0], want[3], want[4], want[5])):
+            out[f"lin_{name}"] = rel_err(g, w)
+        # the kernel's SVD is valid: orthogonal U, V with det +1, and U^T F_new V
+        # diagonal (U, V may differ from the plain SVD by paired column signs)
+        U = got[1].T.reshape(-1, d, d)
+        V = got[2].T.reshape(-1, d, d)
+        eye = torch.eye(d, dtype=dtype, device="cuda")
+        F_new = (eye + DT * transfer.velocity_gradient(c["st"], c["v"])) @ c["F"]
+        S = U.transpose(1, 2) @ F_new @ V
+        off = S - torch.diag_embed(torch.diagonal(S, dim1=1, dim2=2))
+        out["svd_offdiag"] = (float(off.abs().max()), float(off.abs().max() / F_new.abs().max()))
+        out["orth_UV"] = (float(max((U.transpose(1, 2) @ U - eye).abs().max(),
+                                    (V.transpose(1, 2) @ V - eye).abs().max())),) * 2
+        out["det_UV"] = (float(max((torch.linalg.det(U) - 1).abs().max(),
+                                   (torch.linalg.det(V) - 1).abs().max())),) * 2
+        args = apply_args(c, want[1:])
+        out["apply_df"] = rel_err(fa.fused_apply_cuda(*args), fa.fused_apply_plain(*args))
+        windows = ws.read()
 
     tol = TOL[dtype]
     limits = {k: tol["apply"] if k == "apply_df" else tol["linearize"] for k in out}
@@ -280,20 +374,129 @@ def check_kernels(case, timing):
     eps = torch.finfo(dtype).eps
     limits.update(svd_offdiag=200 * eps, orth_UV=50 * eps, det_UV=50 * eps)
     bad = {k: v[1] for k, v in out.items() if not v[1] <= limits[k]}
-    times = {}
-    if timing:
-        lin_ms, lin_src = device_ms(lambda: fl.fused_linearize_cuda(*lin_args), 20,
-                                    "fused_linearize_kernel")
-        apply_ms, apply_src = device_ms(lambda: fa.fused_apply_cuda(*apply_args), 50,
-                                        "fused_apply_kernel")
-        times = dict(
-            linearize_ms=lin_ms, linearize_ms_source=lin_src,
-            linearize_event_ms=cuda_time_ms(lambda: fl.fused_linearize_cuda(*lin_args), 20),
-            linearize_plain_ms=cuda_time_ms(lambda: fl.fused_linearize_plain(*lin_args), 5),
-            apply_ms=apply_ms, apply_ms_source=apply_src,
-            apply_event_ms=cuda_time_ms(lambda: fa.fused_apply_cuda(*apply_args), 50),
-            apply_plain_ms=cuda_time_ms(lambda: fa.fused_apply_plain(*apply_args), 10))
-    return out, limits, bad, times
+    return out, limits, bad, windows
+
+
+def load_baseline(csrc_dir):
+    """The particle kernels of an earlier csrc/ (the stencil-table C
+    interface), built with the same flags into build/, for timing beside the
+    current ones."""
+    from hot_tpu_torch.ops import cuda_lib
+
+    path, seconds, _ = cuda_lib.build(Path(csrc_dir), "libbaseline")
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in TABLE_SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib, seconds
+
+
+def baseline_calls(lib, c, ctx):
+    """Launchers of the baseline kernels on input set c, with its stencil table."""
+    from hot_tpu_torch.ops import cuda_lib
+
+    d, n = c["d"], c["n"]
+    s = 3 ** d
+    ids = c["st"].node_ids.T.to(torch.int32).contiguous()
+    gwn = c["st"].gwn.reshape(n, s * d).T.contiguous()
+    v, w = c["v"], c["w"]
+    stream = cuda_lib.stream_ptr(v.device)
+    outs = [torch.empty((d * d, n), dtype=v.dtype, device="cuda") for _ in range(3)] + [
+        torch.empty((3 if d == 3 else 1, n), dtype=v.dtype, device="cuda") for _ in range(2)]
+
+    def linearize():
+        f = torch.zeros_like(v)
+        rc = lib.hot_fused_linearize(
+            0, cuda_lib.dtype_code(v), d, v.data_ptr(), ids.data_ptr(), gwn.data_ptr(),
+            c["F_soa"].data_ptr(), c["mu"].data_ptr(), c["lam"].data_ptr(), c["V0"].data_ptr(),
+            DT, 1, f.data_ptr(), *(o.data_ptr() for o in outs), n, stream)
+        cuda_lib.check(rc, "baseline fused_linearize")
+        return f
+
+    def apply():
+        df = torch.zeros_like(w)
+        rc = lib.hot_fused_apply(
+            cuda_lib.dtype_code(w), d, w.data_ptr(), ids.data_ptr(), gwn.data_ptr(),
+            c["F_soa"].data_ptr(), *(t.data_ptr() for t in ctx), c["V0"].data_ptr(), DT,
+            df.data_ptr(), n, stream)
+        cuda_lib.check(rc, "baseline fused_apply")
+        return df
+
+    return {"fused_linearize": linearize, "fused_apply": apply}
+
+
+def clamp_share(c):
+    """The share of particles whose sym(A) at F_new is not positive definite
+    by its leading minors (the linearize's clamp eigensolve runs for them)."""
+    from hot_tpu_torch.models import constitutive as cm
+    from hot_tpu_torch.ops import transfer
+
+    d = c["d"]
+    eye = torch.eye(d, dtype=c["F"].dtype, device="cuda")
+    F_new = (eye + DT * transfer.velocity_gradient(c["st"], c["v"])) @ c["F"]
+    A = cm.hessian_context(c["model"], F_new, c["mu"], c["lam"], project=False).A
+    S = 0.5 * (A + A.transpose(1, 2))
+    minors = [S[:, 0, 0], S[:, 0, 0] * S[:, 1, 1] - S[:, 0, 1] * S[:, 1, 0]]
+    if d == 3:
+        minors.append(torch.linalg.det(S))
+    pd = torch.stack([m > 0 for m in minors]).all(0)
+    return 1.0 - float(pd.double().mean())
+
+
+def time_particle_kernels(res, rng, baseline_lib, sweep):
+    """fp32 3D fixed-corotated twisting bar at res^3: each particle kernel's
+    device time per launch (profiler), its plain version's time, the bounds
+    from this run's inputs; the baseline kernels on the same particles in
+    turns (baseline, current, current, baseline) when given; a sweep of
+    block size and window budget when asked."""
+    from hot_tpu_torch.ops import fused_apply as fa
+    from hot_tpu_torch.ops import fused_linearize as fl
+
+    c = kernel_inputs("twisting_bar_3d", "fixed_corotated", torch.float32, rng, res)
+    n, d = c["n"], c["d"]
+    ctx = fl.fused_linearize_plain(*lin_args(c))[1:]
+    cur = {"fused_linearize": lambda **kw: fl.fused_linearize_cuda(*lin_args(c), **kw),
+           "fused_apply": lambda **kw: fa.fused_apply_cuda(*apply_args(c, ctx), **kw)}
+    plain = {"fused_linearize": lambda: fl.fused_linearize_plain(*lin_args(c)),
+             "fused_apply": lambda: fa.fused_apply_plain(*apply_args(c, ctx))}
+    old = baseline_calls(baseline_lib, c, ctx) if baseline_lib is not None else None
+    touched = int(torch.unique(c["st"].node_ids).numel())
+    clamped = clamp_share(c)
+    out = dict(res=res, particles=n, touched_nodes=touched, clamp_share=clamped)
+    for name, fn in cur.items():
+        kernel = name + "_kernel"
+        row = {}
+        if old is not None:
+            want = plain[name]()
+            want = want[0] if isinstance(want, tuple) else want
+            row["baseline_rel_err"] = rel_err(old[name](), want)[1]
+            turns = [("baseline", old[name]), ("current", fn), ("current", fn),
+                     ("baseline", old[name])]
+            for who, f in turns:
+                row.setdefault(who + "_ms", []).append(device_ms(f, 50, kernel)[0])
+        row["ms"], row["ms_source"] = device_ms(fn, 50, kernel)
+        row["plain_ms"] = cuda_time_ms(plain[name], 3 if res > 64 else 5)
+        nbytes = particle_kernel_bytes(name, n, touched, d, 4)
+        flops = FLOPS_PER_PARTICLE[name] + (CLAMP_FLOPS * clamped if name == "fused_linearize"
+                                            else 0)
+        row["bytes"], row["flops"] = nbytes, n * flops
+        row["bound_ms"], row["bound_by"] = bound(nbytes, row["flops"])
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["table_bytes"] = table_kernel_bytes(name, n, res ** d, d, 4)
+        row["table_bound_ms"] = bound(row["table_bytes"], row["flops"])[0]
+        if sweep:
+            row["sweep"] = []
+            for threads in SWEEP["threads"]:
+                for nodes in SWEEP["window_nodes"]:
+                    with WindowStats() as ws:
+                        fn(threads=threads, window_nodes=nodes)
+                        share = ws.read()[name]["overflow_share"]
+                    ms = device_ms(lambda: fn(threads=threads, window_nodes=nodes), 20,
+                                   kernel)[0]
+                    row["sweep"].append(dict(threads=threads, window_nodes=nodes, ms=ms,
+                                             overflow_share=share))
+        out[name] = row
+    return out
 
 
 def run_steps(sim, steps, dt):
@@ -339,7 +542,11 @@ class BuildTimer:
         return [a.elapsed_time(b) for a, b in self.events]
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="an earlier csrc/ whose particle kernels are timed beside these")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -370,34 +577,55 @@ def main():
     cuda_lib.load()
     report = cuda_lib.build_report()
     ptxas = [line.strip() for line in report["ptxas"].splitlines()
-             if "registers" in line or "spill" in line]
+             if "registers" in line or "spill" in line or "Compiling entry" in line]
     emit("build", seconds=round(time.perf_counter() - t0, 3), nvcc_seconds=report["seconds"],
          library=report["path"], ptxas=ptxas)
+    baseline_lib = None
+    if args.baseline:
+        baseline_lib, seconds = load_baseline(args.baseline)
+        emit("build", baseline=args.baseline, nvcc_seconds=seconds)
 
     # ---- 3 kernels against their plain versions
     rng = np.random.default_rng(0)
     summary = {}
     for dtype in (torch.float32, torch.float64):
-        for scene_name, res in (("twisting_bar_3d", 64), ("block_drop_2d", 64)):
-            for model_name in ("fixed_corotated", "stvk_hencky"):
-                case = kernel_inputs(scene_name, model_name, dtype, rng, res)
-                main_shape = (dtype == torch.float32 and scene_name == "twisting_bar_3d"
-                              and model_name == "fixed_corotated")
-                errs, limits, bad, times = check_kernels(case, timing=main_shape)
-                emit("kernels", scene=scene_name, res=res, n=case["n"], model=model_name,
-                     dtype=str(dtype), rel_err={k: v[1] for k, v in errs.items()},
-                     max_abs_err={k: v[0] for k, v in errs.items()}, limits=limits, **times)
-                if bad:
-                    raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-                if main_shape:
-                    n_nodes = res ** 3
-                    for name in ("fused_apply", "fused_linearize"):
-                        nbytes = particle_kernel_bytes(name, case["n"], n_nodes, 3, 4)
-                        times[name + "_bound"] = bound(
-                            nbytes, case["n"] * FLOPS_PER_PARTICLE[name])
-                        times[name + "_bytes"] = nbytes
-                    summary = dict(errs=errs, times=times)
-                del case
+        models = ("fixed_corotated", "stvk_hencky")
+        # (scene, res, model, random order, F noise). With F perturbed by 0.5
+        # a share of the particles needs the clamp's eigensolve and the rest
+        # skip it; StVK-Hencky is ill-conditioned there in fp32 (its plain
+        # version in fp32 and fp64 differ by 1e-3), so it is held in fp64
+        cases = [(scene_name, 64, m, False, 0.1) for scene_name in ("twisting_bar_3d",
+                                                                    "block_drop_2d")
+                 for m in models]
+        cases += [("twisting_bar_3d", 64, "fixed_corotated", True, 0.1)]
+        cases += [("twisting_bar_3d", 64, m, False, 0.5) for m in models
+                  if dtype == torch.float64 or m == "fixed_corotated"]
+        for scene_name, res, model_name, permute, noise in cases:
+            case = kernel_inputs(scene_name, model_name, dtype, rng, res, permute, noise)
+            clamped = clamp_share(case)
+            errs, limits, bad, windows = check_kernels(case)
+            emit("kernels", scene=scene_name, res=res, n=case["n"], model=model_name,
+                 dtype=str(dtype), order="random" if permute else "lattice", F_noise=noise,
+                 clamp_share=clamped, rel_err={k: v[1] for k, v in errs.items()},
+                 max_abs_err={k: v[0] for k, v in errs.items()}, limits=limits,
+                 windows=windows)
+            if bad:
+                raise AssertionError(f"kernel disagrees with its plain version: {bad}")
+            if permute:
+                # a random order spreads every block over the bar: the
+                # global-atomic branch must have run
+                assert all(w["overflow_share"] > 0.5 for w in windows.values()), windows
+            if noise > 0.1:
+                assert 0 < clamped < 1, clamped
+            if (dtype == torch.float32 and scene_name == "twisting_bar_3d"
+                    and model_name == "fixed_corotated" and not permute and noise == 0.1):
+                summary["errs"] = errs
+            del case
+    for res in (64, 128):
+        timing = time_particle_kernels(res, rng, baseline_lib, sweep=True)
+        emit("timing", card=card, **timing)
+        summary[res] = timing
+        torch.cuda.empty_cache()
     for dtype in (torch.float32, torch.float64):
         mats = mg_hierarchy(dtype, rng)
         rows = check_spmv(mats, dtype, rng, timing=dtype == torch.float32)
@@ -409,19 +637,22 @@ def main():
             summary["spmv"] = rows[0]
         del mats
     emit("bounds", copy_bytes_per_s=copy_bytes_per_s, **{
-        k: dict(bound_ms=v[0], bound_by=v[1],
-                copy_bound_ms=summary["times"][k.replace("_bound", "_bytes")]
-                / copy_bytes_per_s * 1e3)
-        for k, v in summary["times"].items() if k.endswith("_bound")})
+        f"{name}_{res}": dict(bound_ms=summary[res][name]["bound_ms"],
+                              bound_by=summary[res][name]["bound_by"],
+                              copy_bound_ms=summary[res][name]["bytes"] / copy_bytes_per_s * 1e3)
+        for res in (64, 128) for name in ("fused_apply", "fused_linearize")})
     torch.cuda.empty_cache()
 
     # ---- 4 the main path at 64^3 (block-Jacobi)
     scene = build_scene("twisting_bar_3d", device="cuda", res=64, ppc=8)
     sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
     fa.launches = fl.launches = sp.launches = 0
-    stats, seconds = run_steps(sim, 12, DT)
+    with WindowStats() as ws:
+        stats, seconds = run_steps(sim, 12, DT)
     launches = {"fused_apply": fa.launches, "fused_linearize": fl.launches,
                 "bsr_spmv": sp.launches}
+    emit("windows", path="main, 64^3 block-Jacobi", threads=fa.BLOCK_THREADS,
+         window_nodes=fa.WINDOW_NODES, **ws.read())
     newton = [s.newton_iters for s in stats]
     cg = [s.cg_iters for s in stats]
     emit("main", particles=sim.state.n, steps=len(stats), seconds=seconds,
@@ -557,22 +788,21 @@ def main():
         assert all(s.converged for s in stats) and sim.retry_count == 0, turns[-1]
         del sim
 
-    errs, times = summary["errs"], summary["times"]
+    errs, t64 = summary["errs"], summary[64]
     spmv = summary["spmv"]
+
+    def particle_row(name, err):
+        row = t64[name]
+        return {"name": name, "route": "cuda", "source": f"hot_tpu_torch/csrc/{name}.cu",
+                "replaces": {"fused_linearize": "hot_tpu/ops/pallas_linearize.py:374",
+                             "fused_apply": "hot_tpu/ops/pallas_apply.py:143"}[name],
+                "launches": launches[name], "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "fused_linearize", "route": "cuda",
-         "source": "hot_tpu_torch/csrc/fused_linearize.cu",
-         "replaces": "hot_tpu/ops/pallas_linearize.py:374",
-         "launches": launches["fused_linearize"], "max_abs_err": errs["lin_f"][0],
-         "ms": times["linearize_ms"], "plain_ms": times["linearize_plain_ms"],
-         "bound_ms": times["fused_linearize_bound"][0],
-         "bound_by": times["fused_linearize_bound"][1], "library_ms": None},
-        {"name": "fused_apply", "route": "cuda", "source": "hot_tpu_torch/csrc/fused_apply.cu",
-         "replaces": "hot_tpu/ops/pallas_apply.py:143",
-         "launches": launches["fused_apply"], "max_abs_err": errs["apply_df"][0],
-         "ms": times["apply_ms"], "plain_ms": times["apply_plain_ms"],
-         "bound_ms": times["fused_apply_bound"][0], "bound_by": times["fused_apply_bound"][1],
-         "library_ms": None},
+        particle_row("fused_linearize", errs["lin_f"][0]),
+        particle_row("fused_apply", errs["apply_df"][0]),
         {"name": "bsr_spmv", "route": "cuda", "source": "hot_tpu_torch/csrc/bsr_spmv.cu",
          "replaces": "hot_tpu/ops/bsr_tiled.py:387",
          "launches": mg_counts["bsr_spmv"], "max_abs_err": spmv["max_abs_err"],

@@ -37,6 +37,8 @@ template <> struct Eps<double> {
 
 HD float sqrt_(float x) { return sqrtf(x); }
 HD double sqrt_(double x) { return sqrt(x); }
+HD float floor_(float x) { return floorf(x); }
+HD double floor_(double x) { return floor(x); }
 HD float log_(float x) { return logf(x); }
 HD double log_(double x) { return log(x); }
 HD float log1p_(float x) { return log1pf(x); }
@@ -130,6 +132,21 @@ HD void eigh_sym(T S[D][D], T w[D], T Q[D][D], int sweeps) {
   }
 #pragma unroll
   for (int r = 0; r < D; ++r) Q[r][D - 1] *= parity;
+}
+
+// Sylvester's criterion: every leading principal minor of symmetric S > 0.
+template <typename T, int D>
+HD bool positive_definite(const T S[D][D]) {
+  if (!(S[0][0] > T(0))) return false;
+  const T m2 = S[0][0] * S[1][1] - S[0][1] * S[1][0];
+  if constexpr (D == 2) {
+    return m2 > T(0);
+  } else {
+    const T det = S[0][0] * (S[1][1] * S[2][2] - S[1][2] * S[2][1]) -
+                  S[0][1] * (S[1][0] * S[2][2] - S[1][2] * S[2][0]) +
+                  S[0][2] * (S[1][0] * S[2][1] - S[1][1] * S[2][0]);
+    return m2 > T(0) && det > T(0);
+  }
 }
 
 // F = U diag(sigma) V^T (see the header note for the conventions).

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``hot_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build happens at first
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all at once) and links them into one shared library with a plain C
+interface, loaded with ``ctypes``. The build happens at first
 use, into ``build/hot_tpu_torch/`` at the root of the checkout, under a file
 name that carries a hash of the sources and flags, so a stale library is
 never loaded. There is no fallback: a missing compiler, a failed build or a
@@ -25,18 +26,21 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "hot_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
+_RES = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    # (dtype, dim, w, node_ids, gwn, F, U, V, A, bp, bm, V0, dt, df, n, stream)
-    "hot_fused_apply": [ctypes.c_int, ctypes.c_int] + [_P] * 10
-                       + [ctypes.c_double, _P, ctypes.c_longlong, _P],
-    # (model, dtype, dim, v, node_ids, gwn, F, mu, lam, V0, dt, project,
-    #  f, U, V, A, bp, bm, n, stream)
-    "hot_fused_linearize": [ctypes.c_int] * 3 + [_P] * 7
+    # (dtype, dim, w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads,
+    #  window_nodes, stats, stream)
+    "hot_fused_apply": [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_double, _RES] + [_P] * 7
+                       + [ctypes.c_double, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          _P, _P],
+    # (model, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V,
+    #  A, bp, bm, n, threads, window_nodes, stats, stream)
+    "hot_fused_linearize": [ctypes.c_int] * 3 + [_P, _P, ctypes.c_double, _RES] + [_P] * 4
                            + [ctypes.c_double, ctypes.c_int] + [_P] * 6
-                           + [ctypes.c_longlong, _P],
+                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P],
     # (dtype, dim, vals, col_row, x, y, n_rows, K, stream)
     "hot_bsr_spmv": [ctypes.c_int, ctypes.c_int] + [_P] * 4
                     + [ctypes.c_longlong, ctypes.c_int, _P],
@@ -67,39 +71,51 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def _digest() -> str:
+def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def build(csrc: Path, stem: str):
+    """Build every ``*.cu`` of `csrc` into ``BUILD_DIR/<stem>_<hash>.so``
+    unless that library exists: one nvcc per source, all started together,
+    then one link. Returns (path, seconds of the build, nvcc's log)."""
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    path = BUILD_DIR / f"{stem}_{_digest(sources)}.so"
+    log_path = path.with_suffix(".log")
+    seconds = 0.0
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            procs = [(cu, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}/{cu.stem}.o", str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                for cu in sources if cu.suffix == ".cu"]
+            logs = [(cu, proc.communicate()[0], proc.returncode) for cu, proc in procs]
+            failed = [f"{cu.name} ({rc}):\n{log}" for cu, log, rc in logs if rc != 0]
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            link = subprocess.run([nvcc, "-shared", "-o", f"{tmp}/lib.so",
+                                   *(f"{tmp}/{cu.stem}.o" for cu, _, _ in logs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            log_path.write_text("".join(log for _, log, _ in logs))
+            os.replace(f"{tmp}/lib.so", path)
+        seconds = time.perf_counter() - t0
+    return path, seconds, log_path.read_text() if log_path.exists() else ""
 
 
 def load():
     """The ctypes library, built on first use."""
     if _LIB.lib is not None:
         return _LIB.lib
-    path = BUILD_DIR / f"libhot_tpu_torch_{_digest()}.so"
-    log_path = path.with_suffix(".log")
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        _LIB.build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
-    _LIB.ptxas_log = log_path.read_text() if log_path.exists() else ""
+    path, _LIB.build_seconds, _LIB.ptxas_log = build(CSRC, "libhot_tpu_torch")
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -137,6 +153,11 @@ def check(rc: int, name: str):
 
 def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def int_array(values):
+    """A ctypes int array (a grid's res) for an ``int*`` argument."""
+    return (ctypes.c_int * len(values))(*(int(v) for v in values))
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}

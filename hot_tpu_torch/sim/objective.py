@@ -9,9 +9,10 @@ the two hot calls goes through the fused kernels:
   * ``multiply`` (once per CG iteration)      -> ``ops.fused_apply``.
 
 Both dispatch on the tensors' device (plain PyTorch on the CPU, the CUDA
-kernel on the card). The per-particle stencil and deformation gradients are
-also kept in the kernels' structure-of-arrays layout (particle index last),
-built once per step in ``make_objective``.
+kernel on the card). The kernels compute the particles' stencil from their
+positions; positions and deformation gradients are kept in the kernels'
+structure-of-arrays layout (particle index last), built once per step in
+``make_objective``.
 
 Unknowns are (n_nodes, d) over the flattened dense grid; inactive nodes
 (zero mass) act as the identity so CG leaves them alone.
@@ -44,9 +45,10 @@ class ObjectiveContext(NamedTuple):
     proj: torch.Tensor       # (n_nodes, d, d) BC projection matrices
     dt: float
     cn_scale: torch.Tensor   # (n_nodes,) characteristic impulse per node
-    node_ids_soa: torch.Tensor  # (s, n) int32
-    gwn_soa: torch.Tensor       # (s*d, n)
-    F_soa: torch.Tensor         # (d*d, n)
+    x_soa: torch.Tensor      # (d, n) particle positions
+    F_soa: torch.Tensor      # (d*d, n)
+    dx: float
+    res: tuple               # grid size per axis
 
 
 class HessianState(NamedTuple):
@@ -66,8 +68,10 @@ class HessianState(NamedTuple):
 
 
 def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
-                   dt: float, dx: float) -> ObjectiveContext:
-    """Build the ObjectiveContext, with the characteristic-norm scale:
+                   dt: float, dx: float, x, res) -> ObjectiveContext:
+    """Build the ObjectiveContext for the particles at x (n, d), whose
+    stencil on the grid (dx, res) is `stencil`, with the characteristic-norm
+    scale:
       force scale   f_i = sum_p w_ip V0_p (2 mu_p + lam_p) / dx
       impulse scale s_i = max(dt f_i, m_i dx / dt)
     (the second term keeps free-fall nodes, with no stiffness, scaled)."""
@@ -77,18 +81,11 @@ def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
     f_char = transfer.scatter_sum(stencil.node_ids, stencil.wn * stiff[:, None], n_nodes)
     cn_scale = torch.maximum(dt * f_char, grid_m * dx / dt)
     cn_scale = torch.where(active, cn_scale, torch.ones_like(cn_scale))
-    node_ids_soa, gwn_soa = stencil_soa(stencil)
     return ObjectiveContext(
         stencil=stencil, F_n=F_n, V0=V0, mu=mu, lam=lam, grid_m=grid_m,
         v_star=v_star, active=active, proj=proj, dt=dt, cn_scale=cn_scale,
-        node_ids_soa=node_ids_soa, gwn_soa=gwn_soa, F_soa=soa(F_n),
+        x_soa=soa(x), F_soa=soa(F_n), dx=dx, res=tuple(res),
     )
-
-
-def stencil_soa(stencil):
-    """(node_ids (s, n) int32, gwn (s*d, n)): a stencil in the fused
-    kernels' SoA layout."""
-    return soa(stencil.node_ids.to(torch.int32)), soa(stencil.gwn)
 
 
 def updated_F(obj: ObjectiveContext, v):
@@ -123,27 +120,27 @@ def linearize(model, obj: ObjectiveContext, v, project_spd: bool = True):
     """(residual, HessianState) at v with one SVD per particle: the
     per-Newton-iteration evaluation, through ``ops.fused_linearize``."""
     f, U, V, A, bp, bm = fused_linearize(
-        v, obj.node_ids_soa, obj.gwn_soa, obj.F_soa, obj.mu, obj.lam, obj.V0,
-        obj.dt, model, project=project_spd)
+        v, obj.x_soa, obj.dx, obj.res, obj.F_soa, obj.mu, obj.lam, obj.V0, obj.dt, model,
+        project=project_spd)
     r = obj.grid_m[:, None] * (v - obj.v_star) - obj.dt * f
     return project(obj, r), HessianState(U=U, V=V, A=A, b_plus=bp, b_minus=bm)
 
 
-def elastic_hessian_apply(node_ids_soa, gwn_soa, F_soa, hess: HessianState, V0,
+def elastic_hessian_apply(x_soa, dx: float, res, F_soa, hess: HessianState, V0,
                           dt: float, grid_m, active, w):
     """Matrix-free (M + dt^2 K) w through ``ops.fused_apply``; the identity
-    on inactive nodes. The stencil may be any level's (``stencil_soa`` of
-    a multigrid level's particle stencil), with that level's mass and mask."""
-    df = fused_apply(w, node_ids_soa, gwn_soa, F_soa, hess.U, hess.V, hess.A,
-                     hess.b_plus, hess.b_minus, V0, dt)
+    on inactive nodes. The grid (dx, res) may be any multigrid level's, with
+    that level's mass and mask."""
+    df = fused_apply(w, x_soa, dx, res, F_soa, hess.U, hess.V, hess.A, hess.b_plus,
+                     hess.b_minus, V0, dt)
     out = grid_m[:, None] * w - dt * df
     return torch.where(active[:, None], out, w)
 
 
 def multiply(obj: ObjectiveContext, hess: HessianState, w):
     """H w at the finest level."""
-    return elastic_hessian_apply(obj.node_ids_soa, obj.gwn_soa, obj.F_soa, hess,
-                                 obj.V0, obj.dt, obj.grid_m, obj.active, w)
+    return elastic_hessian_apply(obj.x_soa, obj.dx, obj.res, obj.F_soa, hess, obj.V0, obj.dt,
+                                 obj.grid_m, obj.active, w)
 
 
 def elastic_block_diag(stencil, F_n, ctx: cm.HessianContext, V0, dt: float,

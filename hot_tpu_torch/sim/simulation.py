@@ -105,7 +105,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
 
     # ---- implicit solve: the Hessian state is (per-particle context, BSR or None)
     objective = obj_mod.make_objective(model, st, state.F, state.V0, state.mu, state.lam,
-                                       grid_m, v_star, proj, dt, dx)
+                                       grid_m, v_star, proj, dt, dx, state.x, res)
 
     def lin_particles(v):
         return obj_mod.linearize(model, objective, v, project_spd=sol.project_hessian)

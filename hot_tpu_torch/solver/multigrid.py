@@ -55,8 +55,9 @@ class MGLevel:
     res: Tuple[int, ...]
     # assembled levels: the symbolic BSR structure; None = matrix-free
     mat_sym: Optional[bsr_mod.BsrMatrix] = None
-    # matrix-free levels: the stencil in the fused apply's SoA layout
-    stencil_soa: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # matrix-free levels: the particle positions (d, n) SoA, from which the
+    # fused apply builds the stencil at this level's dx and res
+    x_soa: Optional[torch.Tensor] = None
 
 
 class MGStatic(NamedTuple):
@@ -90,6 +91,7 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
     device = x.device
     levels, embeds = [], []
     cur_res, cur_dx, cons = tuple(res), dx, constrained
+    x_soa = soa(x)
     for l in range(n_levels):
         st = transfer.particle_stencil(x, cur_dx, cur_res)
         n_nodes = transfer.n_nodes_of(cur_res)
@@ -100,7 +102,7 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
             stencil=st, grid_m=grid_m, active=active, free=active & ~cons,
             dx=cur_dx, res=cur_res,
             mat_sym=bsr_mod.structure(active, cur_res, dtype=dtype) if assembled else None,
-            stencil_soa=None if assembled else obj_mod.stencil_soa(st)))
+            x_soa=None if assembled else x_soa))
         if l == n_levels - 1:
             break
         nxt_res, nxt_dx = coarse_res(cur_res), cur_dx * 2.0
@@ -124,9 +126,8 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
 
 def level_multiply(level: MGLevel, pre: MGPrecond, dt: float, w):
     """Matrix-free A_l w through ``ops.fused_apply``; identity on inactive nodes."""
-    ids, gwn = level.stencil_soa
-    return obj_mod.elastic_hessian_apply(ids, gwn, pre.F_soa, pre.hess, pre.V0, dt,
-                                         level.grid_m, level.active, w)
+    return obj_mod.elastic_hessian_apply(level.x_soa, level.dx, level.res, pre.F_soa, pre.hess,
+                                         pre.V0, dt, level.grid_m, level.active, w)
 
 
 def level_project(level: MGLevel, r):

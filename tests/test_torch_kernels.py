@@ -7,9 +7,11 @@ chains, on the same fp64 inputs.
 On the CPU the port's dispatchers run their plain PyTorch versions; these
 are held against the Pallas kernels run in interpret mode in 2D, and against
 the Pallas kernel bodies run eagerly on component arrays in 3D (interpret
-mode takes minutes for the 3D kernels). test_torch_objective.py holds the
-same modules against hot_tpu's unfused XLA chains. The CUDA kernels against the plain versions need a card
-(marker `cuda`; they skip here).
+mode takes minutes for the 3D kernels). The port's side takes the particle
+positions x with dx and res, from which it builds the stencil; the Pallas
+side takes hot_tpu's own stencil. test_torch_objective.py holds the
+same modules against hot_tpu's unfused XLA chains. The CUDA kernels
+against the plain versions need a card (marker `cuda`; they skip here).
 
 Tolerances: 1e-10 relative to the reference's largest entry where both sides
 compute in fp64 (they differ only in summation order); U and V are compared
@@ -95,7 +97,7 @@ def test_fused_apply_plain_matches_pallas(rng, d):
     else:
         contrib = _eager_apply_body(vi, jo.stencil.gwn, jo.F_n, jctx, jo.V0, DT, d)
     want = jtr.scatter_sum(jo.stencil.node_ids, contrib, w.shape[0])
-    got = tfa.fused_apply(torch.from_numpy(w), to.node_ids_soa, to.gwn_soa, to.F_soa,
+    got = tfa.fused_apply(torch.from_numpy(w), to.x_soa, to.dx, to.res, to.F_soa,
                           th.U, th.V, th.A, th.b_plus, th.b_minus, to.V0, DT)
     assert_close(got, want, TOL)
 
@@ -129,7 +131,7 @@ def test_fused_linearize_plain_matches_pallas(rng, d, model_name):
     else:
         contrib, U, V, A, bp, bm = _eager_linearize_body(*args, d, model_name)
     f = jtr.scatter_sum(jo.stencil.node_ids, contrib, v.shape[0])
-    got = tfl.fused_linearize(torch.from_numpy(v), to.node_ids_soa, to.gwn_soa, to.F_soa,
+    got = tfl.fused_linearize(torch.from_numpy(v), to.x_soa, to.dx, to.res, to.F_soa,
                               to.mu, to.lam, to.V0, DT, p.tmodel)
     assert_close(got[0], f, TOL)
     assert_close(_aos(got[3], d), A, TOL)
@@ -148,7 +150,7 @@ def test_dispatch_is_by_device(rng):
     tobj.multiply(to, th, torch.from_numpy(v))
     assert (tfa.launches, tfl.launches) == before
     with pytest.raises(ValueError):
-        tfa.fused_apply(torch.from_numpy(v).to("meta"), to.node_ids_soa, to.gwn_soa,
+        tfa.fused_apply(torch.from_numpy(v).to("meta"), to.x_soa, to.dx, to.res,
                         to.F_soa, th.U, th.V, th.A, th.b_plus, th.b_minus, to.V0, DT)
 
 
@@ -169,13 +171,14 @@ def test_cuda_kernels_match_plain(rng, cuda_device, d, model_name, dtype, tol):
     p = objective_pair(SCENES[d], rng, model_name)
     to, tmodel, v = p.to, p.tmodel, p.v
     dev = lambda t: t.to(cuda_device, dtype if t.is_floating_point() else t.dtype)  # noqa: E731
-    args = [dev(t) for t in (torch.from_numpy(v), to.node_ids_soa, to.gwn_soa, to.F_soa,
-                             to.mu, to.lam, to.V0)]
-    got = tfl.fused_linearize_cuda(*args, DT, tmodel)
-    want = tfl.fused_linearize_plain(*args, DT, tmodel)
+    v_, x, F, mu, lam, V0 = (dev(t) for t in (torch.from_numpy(v), to.x_soa, to.F_soa,
+                                               to.mu, to.lam, to.V0))
+    args = (v_, x, to.dx, to.res, F, mu, lam, V0, DT, tmodel)
+    got = tfl.fused_linearize_cuda(*args)
+    want = tfl.fused_linearize_plain(*args)
     for g, w_ in zip([got[0], got[3], got[4], got[5]], [want[0], want[3], want[4], want[5]]):
         assert_close(g, t2n(w_), tol)
     w = dev(torch.from_numpy(rng.standard_normal(v.shape)))
-    params = args[1:4] + list(want[1:]) + [args[6]]
-    df = tfa.fused_apply_cuda(w, *params, DT)
-    assert_close(df, t2n(tfa.fused_apply_plain(w, *params, DT)), tol)
+    params = (x, to.dx, to.res, F, *want[1:], V0, DT)
+    df = tfa.fused_apply_cuda(w, *params)
+    assert_close(df, t2n(tfa.fused_apply_plain(w, *params)), tol)

@@ -156,6 +156,35 @@ def test_vcycle_matches_hot_tpu(case):
     assert_close(got, want, 1e-9, scale=float(np.abs(want).max()))
 
 
+@pytest.mark.parametrize("level", [1, 2])
+def test_matrix_free_level_multiply_matches_hot_tpu(level):
+    """The matrix-free coarse-level operator (the fused apply's plain
+    version at the level's dx and res, built from x) == hot_tpu's
+    level_multiply on its own coarse stencil."""
+    sys_ = mg_system()
+    arr, res, dx = sys_["arr"], sys_["res"], sys_["dx"]
+    w_c = np.random.default_rng(1).standard_normal(
+        (jtr.n_nodes_of(tmg.coarse_res(tmg.coarse_res(res)) if level == 2
+                        else tmg.coarse_res(res)), 2))
+
+    @jax.jit
+    def run(x, m, F, V0, jctx, cons, w):
+        mgs = jmg.build_static(x, m, res, dx, LEVELS, cons, jnp.float64)
+        return jmg.level_multiply(mgs.levels[level], F, jctx, V0, DT, w)
+
+    want = np.asarray(run(*(jnp.asarray(arr[f]) for f in ("x", "m", "F", "V0")),
+                          sys_["jctx"], jnp.asarray(sys_["cons"]), jnp.asarray(w_c)))
+    a = {f: torch.from_numpy(np.array(v)) for f, v in arr.items()}
+    mgs = tmg.build_static(a["x"], a["m"], res, dx, LEVELS, torch.from_numpy(sys_["cons"]),
+                           torch.float64)
+    lv = mgs.levels[level]
+    assert lv.x_soa is not None and lv.dx == dx * 2 ** level
+    pre = tmg.MGPrecond(diag_inv=(), lmax=(), hess=torch_hess(sys_["jctx"]), F_soa=soa(a["F"]),
+                        V0=a["V0"])
+    got = tmg.level_multiply(lv, pre, DT, torch.from_numpy(w_c))
+    assert_close(got, want, 1e-10, scale=float(np.abs(want).max()))
+
+
 def test_fp32_fringe_node_vcycle_is_finite_and_f64_counts_hold(monkeypatch):
     sys_ = mg_system(fringe=True)
     assert sys_["gm"][sys_["gm"] > 0].min() < 1e-19
@@ -176,7 +205,8 @@ def test_fp32_fringe_node_vcycle_is_finite_and_f64_counts_hold(monkeypatch):
     cons = torch.from_numpy(sys_["cons"])
     proj = torch.where(cons[:, None, None], torch.zeros(()), torch.eye(2, dtype=torch.float64))
     obj = tobj.make_objective(sys_["model"], st, a["F"], a["V0"], a["mu"], a["lam"], gm,
-                              torch.zeros((n_nodes, 2), dtype=torch.float64), proj, DT, dx)
+                              torch.zeros((n_nodes, 2), dtype=torch.float64), proj, DT, dx,
+                              a["x"], res)
     hess = torch_hess(sys_["jctx"])
 
     def solve():

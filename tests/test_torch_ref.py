@@ -57,7 +57,7 @@ def objective_pair(scene_name, rng, model_name="fixed_corotated"):
     tgm, _ = ttr.p2g_mass_momentum(tst, ts.v, ts.C, ts.m, n_nodes)
     to = tobj.make_objective(tcm.MODEL_REGISTRY[model_name], tst, ts.F, ts.V0, ts.mu,
                              ts.lam, tgm, torch.from_numpy(v_star), torch.from_numpy(proj.copy()),
-                             DT, cfg.dx)
+                             DT, cfg.dx, ts.x, res)
     return SimpleNamespace(jo=jo, to=to, jmodel=jcm.MODEL_REGISTRY[model_name],
                            tmodel=tcm.MODEL_REGISTRY[model_name], v=v,
                            x=np.asarray(js.x), res=res, dx=cfg.dx)

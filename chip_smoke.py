@@ -12,7 +12,11 @@ Phases, each printing one JSON line:
               perturbed by seeded noise) and a 64^2 block drop, in fp32 and
               fp64, and on the 64^3 bar with its particles in a random order
               (the blocks' node windows overflow: the share that took the
-              global-atomic branch); bsr_spmv on the four operators of the
+              global-atomic branch); on the 64^3 stacked boxes (mu and lam
+              over four decades; A and b+- also per box, each against its own
+              largest entry), on the bar without SPD projection (as MINRES
+              runs it), and on the 64^2 sand column with F through
+              Drucker-Prager's return map (StVK-Hencky); bsr_spmv on the four operators of the
               64^3 config-3 multigrid hierarchy (K = 125, 343, 729, 729), in
               fp32 and fp64, beside torch.sparse_bsr_tensor @ x; errors, each
               kernel's device time per launch (torch.profiler) and CUDA-event
@@ -37,11 +41,26 @@ Phases, each printing one JSON line:
               recorded) and fp64 (finite and converged)
   6 cpu       3 steps at 32^3 (ppc 4) on the card (fp32) and on the CPU
               (plain versions, fp64) from one state, under block-Jacobi and
-              under config 3 with 3 levels
+              under config 3 with 3 levels; and the same for the plastic
+              scenes from stress_state: sand_column_2d and snowball_drop_2d
+              at 32^2 (Jp too) and twisting_bar_vonmises_3d at 32^3 ppc 4
   7 scale     128^3 (ppc 8): config 3 and block-Jacobi as whole steps from
               one state, in alternating turns: steps/s, (newton, cg), MG
               build ms per Newton, peak device memory
-Then the kernels' summary and, last, {"ok": true, "device": {...}}.
+  8 scenes    every scene of the registry at its default size, fp32, 3 steps
+              at dt 2e-3 x 64 dx from stress_state: particles, nodes, steps/s,
+              (newton, cg), peak memory, the share of particles the return
+              map changed, Jp's range (snow), the mesh inside test's time;
+              finite, converged, no dt retry, Newton in the first step,
+              launch counters equal to the derived counts
+  9 config4   stacked_boxes_3d at 64^3 (E 1e4..1e8): config 3 and
+              block-Jacobi from one state, in turns: CG per Newton, MG build
+              ms per Newton, steps/s, all three launch counters checked
+  10 solver_options  the 64^3 twisting bar, 3 steps from stress_state, under
+              MINRES without SPD projection and with Armijo line search:
+              Newton, MINRES/CG, backtracks, launch counters checked
+Then each phase's seconds, the kernels' summary and, last,
+{"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; it needs a CUDA device and exits
 non-zero without one.
 
@@ -262,12 +281,16 @@ def check_spmv(mats, dtype, rng, timing):
     return rows
 
 
-def kernel_inputs(scene_name, model_name, dtype, rng, res, permute=False, noise=0.1):
+def kernel_inputs(scene_name, model_name, dtype, rng, res, permute=False, noise=0.1,
+                  project=True, plastic=False):
     """One input set of the particle kernels: a scene's particles (F
-    perturbed by seeded noise of scale `noise`; in a random order if
+    perturbed by seeded noise of scale `noise`, then passed through
+    Drucker-Prager's return map if `plastic`; in a random order if
     `permute`), random grid vectors v and w, and the particles' stencil on
-    the grid."""
+    the grid. The linearize runs with SPD projection if `project`. For a
+    scene of several bodies, `groups` holds each body's particle slice."""
     from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
+    from hot_tpu_torch.models.plasticity import DruckerPrager
     from hot_tpu_torch.ops import transfer
     from hot_tpu_torch.ops.fused_apply import soa
     from hot_tpu_torch.scenes import build_scene
@@ -279,6 +302,12 @@ def kernel_inputs(scene_name, model_name, dtype, rng, res, permute=False, noise=
     x, mu, lam, V0 = state.x, state.mu, state.lam, state.V0
     F = state.F + torch.as_tensor(noise * rng.standard_normal((n, d, d)), dtype=dtype,
                                   device="cuda")
+    if plastic:
+        alpha = DruckerPrager.alpha_from_friction_angle(30.0)
+        F = DruckerPrager.project(F, mu, lam, alpha)
+    # bodies of different material are contiguous (concatenate_states)
+    cuts = [0] + (torch.nonzero(mu[1:] != mu[:-1]).flatten() + 1).tolist() + [n]
+    groups = [(f"mu={float(mu[a]):.3g}", slice(a, b)) for a, b in zip(cuts[:-1], cuts[1:])]
     if permute:
         perm = torch.as_tensor(rng.permutation(n), device="cuda")
         x, F, mu, lam, V0 = (t[perm].contiguous() for t in (x, F, mu, lam, V0))
@@ -288,12 +317,13 @@ def kernel_inputs(scene_name, model_name, dtype, rng, res, permute=False, noise=
     v = torch.as_tensor(rng.standard_normal((n_nodes, d)), dtype=dtype, device="cuda")
     w = torch.as_tensor(rng.standard_normal((n_nodes, d)), dtype=dtype, device="cuda")
     return dict(model=MODEL_REGISTRY[model_name], v=v, w=w, F=F, x_soa=soa(x), F_soa=soa(F),
-                dx=1.0 / res, res=grid, mu=mu, lam=lam, V0=V0, st=st, n=n, d=d)
+                dx=1.0 / res, res=grid, mu=mu, lam=lam, V0=V0, st=st, n=n, d=d,
+                project=project, groups=groups if len(groups) > 1 else [])
 
 
 def lin_args(c):
     return (c["v"], c["x_soa"], c["dx"], c["res"], c["F_soa"], c["mu"], c["lam"], c["V0"], DT,
-            c["model"])
+            c["model"], c["project"])
 
 
 def apply_args(c, ctx):
@@ -351,6 +381,10 @@ def check_kernels(case):
         for name, g, w in zip(("f", "A", "b_plus", "b_minus"), (got[0], got[3], got[4], got[5]),
                               (want[0], want[3], want[4], want[5])):
             out[f"lin_{name}"] = rel_err(g, w)
+            # each body's per-particle outputs against its own largest entry,
+            # so a soft body's error is not hidden under a stiff one's
+            for label, sl in c["groups"] if name != "f" else ():
+                out[f"lin_{name}[{label}]"] = rel_err(g[:, sl], w[:, sl])
         # the kernel's SVD is valid: orthogonal U, V with det +1, and U^T F_new V
         # diagonal (U, V may differ from the plain SVD by paired column signs)
         U = got[1].T.reshape(-1, d, d)
@@ -542,6 +576,145 @@ class BuildTimer:
         return [a.elapsed_time(b) for a, b in self.events]
 
 
+class PlasticShare:
+    """Per step, the share of particles whose F the plasticity return map
+    changed by more than 1e-4 relative (fp32 rounding of the rebuilt F is
+    ~1e-7); kept on the device and read after the steps."""
+
+    def __enter__(self):
+        from hot_tpu_torch.sim import simulation as sim_mod
+
+        self.mod, self.orig, self.shares = sim_mod, sim_mod.return_map, []
+
+        def recorded(plasticity, F, state):
+            F_new, Jp = self.orig(plasticity, F, state)
+            if plasticity is not None:
+                changed = (F_new - F).abs().amax((1, 2)) > 1e-4 * F.abs().amax((1, 2))
+                self.shares.append(changed.float().mean())
+            return F_new, Jp
+
+        self.mod.return_map = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.return_map = self.orig
+
+    def read(self):
+        return [float(t) for t in self.shares]
+
+
+class InsideTimer:
+    """Seconds, points and faces of each mesh inside test, and the points
+    found inside."""
+
+    def __enter__(self):
+        from hot_tpu_torch.io import mesh
+
+        self.mod, self.orig, self.calls = mesh, mesh.points_inside_mesh, []
+
+        def timed(points, verts, faces):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(points, verts, faces)
+            torch.cuda.synchronize()
+            self.calls.append(dict(seconds=time.perf_counter() - t0, points=int(points.shape[0]),
+                                   faces=len(faces), inside=int(out.sum())))
+            return out
+
+        self.mod.points_inside_mesh = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.points_inside_mesh = self.orig
+
+
+class Attempts:
+    """Every attempt of Simulation.step (a dt retry repeats the step at half
+    dt): its dt and StepStats, read after the steps."""
+
+    def __enter__(self):
+        from hot_tpu_torch.sim import simulation as sim_mod
+
+        self.mod, self.orig, self.stats = sim_mod, sim_mod.advance_one_step, []
+
+        def recorded(state, dt, t, **kw):
+            new_state, stats = self.orig(state, dt, t, **kw)
+            self.stats.append((dt, stats))
+            return new_state, stats
+
+        self.mod.advance_one_step = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.advance_one_step = self.orig
+
+    def retried(self, accepted):
+        """The attempts that were not accepted: (dt, newton, cg, converged,
+        cn_residual)."""
+        kept = {id(s) for s in accepted}
+        return [(dt, s.newton_iters, s.cg_iters, s.converged, s.cn_residual)
+                for dt, s in self.stats if id(s) not in kept]
+
+
+def counted(fn):
+    """(fn(), each kernel's launches during it)."""
+    from hot_tpu_torch.ops import bsr_spmv as sp
+    from hot_tpu_torch.ops import fused_apply as fa
+    from hot_tpu_torch.ops import fused_linearize as fl
+
+    mods = {"fused_apply": fa, "fused_linearize": fl, "bsr_spmv": sp}
+    for m in mods.values():
+        m.launches = 0
+    out = fn()
+    return out, {k: m.launches for k, m in mods.items()}
+
+
+def mg_spmv_launches(mgc, newton, cg):
+    """(per build, per V-cycle, total) bsr_spmv launches of config 3, from
+    solver/multigrid.py: every level is assembled, so each SpMV is one
+    launch. Per build (one per Newton iteration that solves): power_iters
+    for each Chebyshev level above the coarsest. Per V-cycle (one per CG
+    iteration plus one for the initial residual): on each level above the
+    coarsest, pre- and post-smoothing apply the operator pre_smooth*order and
+    post_smooth*order times, and the level residual once; the coarsest level
+    is a Cholesky solve."""
+    smoothed = mgc.levels - 1
+    per_build = mgc.power_iters * smoothed
+    per_vcycle = smoothed * ((mgc.pre_smooth + mgc.post_smooth) * mgc.chebyshev_order + 1)
+    return per_build, per_vcycle, per_build * sum(newton) + per_vcycle * (sum(cg) + sum(newton))
+
+
+def expected_launches(newton, cg, minres=False, mgc=None):
+    """The launches the step's code implies for these Newton and inner
+    iteration counts: one linearize per Newton iterate (and one at v0); one
+    apply per inner iteration plus one per solve for the initial residual
+    (MINRES: two, the second for the first preconditioned residual); the
+    SpMVs of config 3 (mgc) or none."""
+    return {"fused_apply": sum(cg) + (2 if minres else 1) * sum(newton),
+            "fused_linearize": sum(k + 1 for k in newton),
+            "bsr_spmv": 0 if mgc is None else mg_spmv_launches(mgc, newton, cg)[2]}
+
+
+def step_record(sim, stats, seconds):
+    newton = [s.newton_iters for s in stats]
+    return dict(particles=sim.state.n, nodes=math.prod(sim.cfg.grid_res[:sim.cfg.dim]),
+                steps=len(stats), seconds=seconds, steps_per_s=len(stats) / seconds,
+                newton=newton, cg=[s.cg_iters for s in stats],
+                cg_per_newton=sum(s.cg_iters for s in stats) / max(sum(newton), 1),
+                converged=[s.converged for s in stats], retries=sim.retry_count,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def assert_steps_ok(sim, stats, row, max_retries=0):
+    """Finite state, every step converged with no dt retry (max_retries
+    where a case is known to need one), and Newton at work from the first
+    step (stress_state's velocities; a scene may relax to Newton 0 later, as
+    the chain's stiff rings do by their third step)."""
+    assert bool(torch.isfinite(sim.state.x).all() and torch.isfinite(sim.state.Ff).all()), row
+    assert all(s.converged for s in stats) and sim.retry_count <= max_retries, row
+    assert stats[0].newton_iters > 0, row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="DIR",
@@ -554,11 +727,17 @@ def main(argv=None):
     from hot_tpu_torch.ops import cuda_lib
     from hot_tpu_torch.ops import fused_apply as fa
     from hot_tpu_torch.ops import fused_linearize as fl
-    from hot_tpu_torch.scenes import build_scene
+    from hot_tpu_torch.scenes import SCENES, build_scene, stress_state
     from hot_tpu_torch.sim import Simulation
     from hot_tpu_torch.sim.state import state_from_numpy
     from hot_tpu_torch.solver import multigrid as mg_mod
     from hot_tpu_torch.utils.config import config_from_overrides
+
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        laps[phase], t_lap[0] = now - t_lap[0], now
 
     # ---- 1 env
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -572,6 +751,7 @@ def main(argv=None):
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=nvcc, python=sys.version.split()[0], copy_bytes_per_s=copy_bytes_per_s)
 
+    lap("env")
     # ---- 2 build
     t0 = time.perf_counter()
     cuda_lib.load()
@@ -585,27 +765,36 @@ def main(argv=None):
         baseline_lib, seconds = load_baseline(args.baseline)
         emit("build", baseline=args.baseline, nvcc_seconds=seconds)
 
+    lap("build")
     # ---- 3 kernels against their plain versions
     rng = np.random.default_rng(0)
     summary = {}
     for dtype in (torch.float32, torch.float64):
         models = ("fixed_corotated", "stvk_hencky")
-        # (scene, res, model, random order, F noise). With F perturbed by 0.5
-        # a share of the particles needs the clamp's eigensolve and the rest
-        # skip it; StVK-Hencky is ill-conditioned there in fp32 (its plain
-        # version in fp32 and fp64 differ by 1e-3), so it is held in fp64
-        cases = [(scene_name, 64, m, False, 0.1) for scene_name in ("twisting_bar_3d",
-                                                                    "block_drop_2d")
-                 for m in models]
-        cases += [("twisting_bar_3d", 64, "fixed_corotated", True, 0.1)]
-        cases += [("twisting_bar_3d", 64, m, False, 0.5) for m in models
+        # (scene, res, model, random order, F noise, SPD projection, F through
+        # Drucker-Prager's return map). With F perturbed by 0.5 a share of the
+        # particles needs the clamp's eigensolve and the rest skip it;
+        # StVK-Hencky is ill-conditioned there in fp32 (its plain version in
+        # fp32 and fp64 differ by 1e-3), so it is held in fp64. The stacked
+        # boxes' mu and lam span four decades (errors also per box); MINRES
+        # runs the linearize without projection; the sand column's StVK-Hencky
+        # sees plastically projected F
+        cases = [(scene_name, 64, m, False, 0.1, True, False)
+                 for scene_name in ("twisting_bar_3d", "block_drop_2d") for m in models]
+        cases += [("twisting_bar_3d", 64, "fixed_corotated", True, 0.1, True, False)]
+        cases += [("twisting_bar_3d", 64, m, False, 0.5, True, False) for m in models
                   if dtype == torch.float64 or m == "fixed_corotated"]
-        for scene_name, res, model_name, permute, noise in cases:
-            case = kernel_inputs(scene_name, model_name, dtype, rng, res, permute, noise)
+        cases += [("stacked_boxes_3d", 64, "fixed_corotated", False, 0.1, True, False)]
+        cases += [("twisting_bar_3d", 64, m, False, 0.1, False, False) for m in models]
+        cases += [("sand_column_2d", 64, "stvk_hencky", False, 0.1, True, True)]
+        for scene_name, res, model_name, permute, noise, project, plastic in cases:
+            case = kernel_inputs(scene_name, model_name, dtype, rng, res, permute, noise,
+                                 project, plastic)
             clamped = clamp_share(case)
             errs, limits, bad, windows = check_kernels(case)
             emit("kernels", scene=scene_name, res=res, n=case["n"], model=model_name,
                  dtype=str(dtype), order="random" if permute else "lattice", F_noise=noise,
+                 project=project, F_through_drucker_prager=plastic,
                  clamp_share=clamped, rel_err={k: v[1] for k, v in errs.items()},
                  max_abs_err={k: v[0] for k, v in errs.items()}, limits=limits,
                  windows=windows)
@@ -617,8 +806,11 @@ def main(argv=None):
                 assert all(w["overflow_share"] > 0.5 for w in windows.values()), windows
             if noise > 0.1:
                 assert 0 < clamped < 1, clamped
+            if scene_name == "stacked_boxes_3d":
+                assert len(case["groups"]) == 3, case["groups"]
             if (dtype == torch.float32 and scene_name == "twisting_bar_3d"
-                    and model_name == "fixed_corotated" and not permute and noise == 0.1):
+                    and model_name == "fixed_corotated" and not permute and noise == 0.1
+                    and project):
                 summary["errs"] = errs
             del case
     for res in (64, 128):
@@ -643,6 +835,7 @@ def main(argv=None):
         for res in (64, 128) for name in ("fused_apply", "fused_linearize")})
     torch.cuda.empty_cache()
 
+    lap("kernels")
     # ---- 4 the main path at 64^3 (block-Jacobi)
     scene = build_scene("twisting_bar_3d", device="cuda", res=64, ppc=8)
     sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
@@ -669,6 +862,7 @@ def main(argv=None):
     vmax = max(s.max_velocity for s in stats)
     assert 1.0 < vmax < 3.0, vmax   # clamps spin at 4 pi rad/s, 0.14 from the axis: ~1.76
 
+    lap("main")
     # ---- 5 the multigrid path at 64^3 (config 3, then the default MG)
     scene = build_scene("twisting_bar_3d", device="cuda", res=64, ppc=8)
     cfg3 = config3(scene["cfg"])
@@ -681,17 +875,7 @@ def main(argv=None):
                    "bsr_spmv": sp.launches}
     newton = [s.newton_iters for s in stats]
     cg = [s.cg_iters for s in stats]
-    # bsr_spmv launches, from solver/multigrid.py: every level is assembled,
-    # so each SpMV is one launch. Per build (one per Newton iteration that
-    # solves): power_iters for each Chebyshev level above the coarsest.
-    # Per V-cycle (one per CG iteration plus one for the initial residual):
-    # on each level above the coarsest, pre- and post-smoothing apply the
-    # operator pre_smooth*order and post_smooth*order times, and the level
-    # residual once; the coarsest level is a Cholesky solve.
-    smoothed = mgc.levels - 1
-    per_build = mgc.power_iters * smoothed
-    per_vcycle = smoothed * ((mgc.pre_smooth + mgc.post_smooth) * mgc.chebyshev_order + 1)
-    want_spmv = per_build * sum(newton) + per_vcycle * (sum(cg) + sum(newton))
+    per_build, per_vcycle, want_spmv = mg_spmv_launches(mgc, newton, cg)
     build_ms = bt.ms()
     emit("mg", config="config 3", particles=sim.state.n, steps=len(stats), seconds=seconds,
          steps_per_s=len(stats) / seconds, newton=newton, cg=cg,
@@ -729,6 +913,7 @@ def main(argv=None):
         del sim
     torch.cuda.empty_cache()
 
+    lap("mg")
     # ---- 6 the card against the CPU (32^3, ppc 4, 3 steps)
     for label, levels in (("block_jacobi", None), ("config 3, 3 levels", 3)):
         base = build_scene("twisting_bar_3d", device="cpu", res=32, ppc=4, dtype=torch.float64)
@@ -757,8 +942,40 @@ def main(argv=None):
             assert r["x_diff_over_dx"] <= X_TOL, rows
         assert sum(r["newton"][1] for r in rows) > 0, rows
         del sims
+    # the plastic scenes from stress_state (the snow ball at twice the
+    # default magnitude, which takes it past snow's critical compression)
+    for name, kw, mag in (("sand_column_2d", dict(res=32), 8.0),
+                          ("snowball_drop_2d", dict(res=32), 16.0),
+                          ("twisting_bar_vonmises_3d", dict(res=32, ppc=4), 8.0)):
+        base = build_scene(name, device="cpu", dtype=torch.float64, **kw)
+        arrays = stress_state(base["state"], base["cfg"], mag).to_numpy()
+        sims = {dev: Simulation(base["cfg"], state_from_numpy(arrays, dev, dtype), base["model"],
+                                base["colliders"], plasticity=base["plasticity"])
+                for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64))}
+        dx = base["cfg"].dx
+        rows = []
+        for _ in range(3):
+            g, c = sims["cuda"].step(DT), sims["cpu"].step(DT)
+            gs, cs = sims["cuda"].state, sims["cpu"].state
+            dxmax = float((gs.x.double().cpu() - cs.x).abs().max())
+            jp = float((gs.Jp.double().cpu() - cs.Jp).abs().max() / cs.Jp.abs().max())
+            rows.append(dict(newton=(g.newton_iters, c.newton_iters), cg=(g.cg_iters, c.cg_iters),
+                             x_diff_over_dx=dxmax / dx, Jp_rel_diff=jp,
+                             Jp_range=(float(cs.Jp.min()), float(cs.Jp.max()))))
+        emit("cpu", scene=name, plasticity=base["plasticity"], particles=base["state"].n,
+             steps=rows, retries=(sims["cuda"].retry_count, sims["cpu"].retry_count),
+             limits=dict(newton="equal", cg_diff=2, x_diff_over_dx=X_TOL, Jp_rel_diff=X_TOL))
+        for r in rows:
+            assert r["newton"][0] == r["newton"][1], rows
+            assert abs(r["cg"][0] - r["cg"][1]) <= 2, rows
+            assert r["x_diff_over_dx"] <= X_TOL and r["Jp_rel_diff"] <= X_TOL, rows
+        assert sum(r["newton"][1] for r in rows) > 0, rows
+        if name == "snowball_drop_2d":
+            assert rows[-1]["Jp_range"][0] < 1.0, rows
+        del sims
     torch.cuda.empty_cache()
 
+    lap("cpu")
     # ---- 7 scale: 128^3, config 3 and block-Jacobi from one state, in turns
     scene = build_scene("twisting_bar_3d", device="cuda", res=128, ppc=8)
     sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
@@ -787,6 +1004,112 @@ def main(argv=None):
         assert bool(torch.isfinite(sim.state.x).all()), turns[-1]
         assert all(s.converged for s in stats) and sim.retry_count == 0, turns[-1]
         del sim
+
+    del start
+    torch.cuda.empty_cache()
+    lap("scale")
+
+    # ---- 8 scenes: every scene of the registry at its default size, 3 steps
+    # from stress_state (the snow ball at twice its magnitude, as in phase cpu)
+    # at dt 2e-3 scaled by dx/(1/64), the protocol's cells per step: at 128^3
+    # stress_state's velocities cross twice the cells of 64^3 per step, and
+    # the faceless mesh (0.82 tall) then moves 0.9 dx per step at dt 2e-3 and
+    # needed a dt retry there on an H100
+    scene_launches = {}
+    for name in SCENES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with InsideTimer() as inside:
+            scene = build_scene(name, device="cuda")
+        build_s = time.perf_counter() - t0
+        state = stress_state(scene["state"], scene["cfg"], 16.0 if name == "snowball_drop_2d"
+                             else 8.0)
+        sim = Simulation(scene["cfg"], state, scene["model"], scene["colliders"],
+                         plasticity=scene["plasticity"])
+        dt = DT * 64 * scene["cfg"].dx
+        with PlasticShare() as plastic:
+            (stats, seconds), run_launches = counted(lambda: run_steps(sim, 3, dt))
+        row = step_record(sim, stats, seconds)
+        want = expected_launches(row["newton"], row["cg"])
+        row.update(scene=name, res=scene["cfg"].grid_res[0], dt=dt, build_seconds=build_s,
+                   model=scene["model"].name, plasticity=scene["plasticity"],
+                   launches=run_launches, launches_expected=want)
+        if scene["plasticity"] is not None:
+            row["plastic_share"] = plastic.read()
+        if scene["plasticity"] == "snow":
+            row["Jp_range"] = (float(sim.state.Jp.min()), float(sim.state.Jp.max()))
+        if inside.calls:
+            row["inside_test"] = inside.calls
+        emit("scenes", card=card, **row)
+        assert_steps_ok(sim, stats, row)
+        assert run_launches == want, row
+        if scene["plasticity"] is not None:
+            assert len(row["plastic_share"]) == 3 and max(row["plastic_share"]) > 0, row
+        if name == "faceless_mesh_3d":
+            assert len(inside.calls) == 1 and inside.calls[0]["inside"] == sim.state.n, row
+        for k, v in run_launches.items():
+            scene_launches[k] = scene_launches.get(k, 0) + v
+        del scene, state, sim
+    emit("scenes", scenes=len(SCENES), launches=scene_launches)
+    lap("scenes")
+
+    # ---- 9 config 4: the stacked boxes (E 1e4..1e8) at 64^3, config 3 and
+    # block-Jacobi from one state (stress_state), in turns
+    scene = build_scene("stacked_boxes_3d", device="cuda", res=64)
+    start = stress_state(scene["state"], scene["cfg"])
+    for label in ("config 3", "block_jacobi", "block_jacobi", "config 3"):
+        cfg = config3(scene["cfg"]) if label == "config 3" else scene["cfg"]
+        sim = Simulation(cfg, start, scene["model"], scene["colliders"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with BuildTimer(mg_mod) as bt, Attempts() as att:
+            (stats, seconds), run_launches = counted(lambda: run_steps(sim, 3, DT))
+        build_ms = bt.ms()
+        row = step_record(sim, stats, seconds)
+        mgc = cfg.solver.multigrid if label == "config 3" else None
+        # the launches of every attempt, a retried one's too
+        newton_all = [a.newton_iters for _, a in att.stats]
+        want = expected_launches(newton_all, [a.cg_iters for _, a in att.stats], mgc=mgc)
+        row.update(preconditioner=label, launches=run_launches, launches_expected=want,
+                   retried_attempts=att.retried(stats),
+                   mg_build_ms_per_newton=float(np.mean(build_ms)) if build_ms else None)
+        emit("config4", card=card, scene="stacked_boxes_3d", res=64, **row)
+        # config 3's first step from this state takes 10 Newton iterations
+        # without reaching the CN tolerance and is retried at dt/2; hot_tpu
+        # retries it too (compared on the CPU, fp32 and fp64). Reported, and
+        # every attempt's launches counted
+        assert_steps_ok(sim, stats, row, max_retries=1 if mgc else 0)
+        assert run_launches == want, row
+        assert len(build_ms) == (sum(newton_all) if mgc else 0), row
+        del sim
+    del scene, start
+    lap("config4")
+
+    # ---- 10 solver options: the 64^3 twisting bar, 3 steps from stress_state,
+    # under MINRES without SPD projection and with Armijo line search
+    scene = build_scene("twisting_bar_3d", device="cuda", res=64, ppc=8)
+    start = stress_state(scene["state"], scene["cfg"])
+    for label, overrides in (
+            ("minres, no SPD projection", {"solver.linear_solver": "minres",
+                                           "solver.project_hessian": False}),
+            ("line search", {"solver.line_search": True})):
+        cfg = config_from_overrides(scene["cfg"], overrides)
+        sim = Simulation(cfg, start, scene["model"], scene["colliders"])
+        torch.cuda.reset_peak_memory_stats()
+        (stats, seconds), run_launches = counted(lambda: run_steps(sim, 3, DT))
+        row = step_record(sim, stats, seconds)
+        want = expected_launches(row["newton"], row["cg"],
+                                 minres=cfg.solver.linear_solver == "minres")
+        row.update(options=label, backtracks=[s.ls_backtracks for s in stats],
+                   launches=run_launches, launches_expected=want)
+        emit("solver_options", card=card, scene="twisting_bar_3d", res=64, **row)
+        assert_steps_ok(sim, stats, row)
+        assert run_launches == want, row
+        del sim
+    del scene, start
+    lap("solver_options")
+    emit("runtime", seconds=laps, total_seconds=sum(laps.values()))
 
     errs, t64 = summary["errs"], summary[64]
     spmv = summary["spmv"]

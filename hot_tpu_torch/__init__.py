@@ -11,10 +11,14 @@ counterpart is easy to find:
             bsr_spmv (the CUDA kernels, counterparts of pallas_apply /
             pallas_linearize / bsr_tiled.spmv_T); BSR assembly and the
             Galerkin RAP (bsr, spgemm)
-  models    fixed-corotated and StVK-Hencky in singular-value space
-  solver    projected CG, inexact Newton, node-embedding multigrid
-  sim       state, seeding, colliders, the objective and the time step
-  scenes    block_drop_2d and twisting_bar_3d
+  models    fixed-corotated and StVK-Hencky in singular-value space; the
+            von Mises, snow and Drucker-Prager return maps
+  solver    projected CG and MINRES, inexact Newton with optional line
+            search, node-embedding multigrid
+  sim       state, seeding, colliders, the objective, the time step,
+            conservation queries and the finite-difference check
+  io        OBJ meshes and sampling inside them
+  scenes    hot_tpu's eleven scenes and their procedural mesh asset
   utils     config tree, metrics, timers
 """
 

@@ -1,9 +1,9 @@
 """Analytic collision objects and grid-node boundary conditions.
 
-Counterpart of ``hot_tpu.sim.collision`` (half spaces and axis boxes with
-scripted rigid motion). Per grid node the colliders give a (d, d)
-projection P_i and a target velocity v_bc_i; the implicit solver applies
-P_i in its ``project`` callback every CG iteration.
+Counterpart of ``hot_tpu.sim.collision`` (half spaces, spheres, axis boxes
+and capped cylinders, with scripted rigid motion). Per grid node the
+colliders give a (d, d) projection P_i and a target velocity v_bc_i; the
+implicit solver applies P_i in its ``project`` callback every CG iteration.
 
 Velocity convention at constrained nodes: v_i = v_bc_i + P_i (v_i - v_bc_i)
   * sticky:   P = 0          v = v_obj
@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 STICKY = "sticky"
@@ -76,6 +77,22 @@ class HalfSpace(Collider):
 
 
 @dataclasses.dataclass(frozen=True)
+class Sphere(Collider):
+    center: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    radius: float = 1.0
+    inverted: bool = False     # True: keep things inside the sphere
+
+    def phi(self, x, t):
+        d = torch.linalg.norm(x - _t(self.center, x)[None, :], dim=-1) - self.radius
+        return -d if self.inverted else d
+
+    def normal(self, x, t):
+        rel = x - _t(self.center, x)[None, :]
+        n = rel / torch.clamp(torch.linalg.norm(rel, dim=-1, keepdim=True), min=1e-12)
+        return -n if self.inverted else n
+
+
+@dataclasses.dataclass(frozen=True)
 class AxisBox(Collider):
     """Axis-aligned box; contact inside (clamps, pads). Normal: the axis of
     deepest penetration, toward the nearer face."""
@@ -101,6 +118,58 @@ class AxisBox(Collider):
         nrm = torch.zeros_like(x)
         nrm[rows, axis] = sign.to(x.dtype)
         return nrm
+
+
+@dataclasses.dataclass(frozen=True)
+class Cylinder(Collider):
+    """Finite capped cylinder: axis through `center` along unit(`axis`),
+    radius R, half-height h; phi < 0 inside. Exact distance outside; inside,
+    the distance to the nearest face."""
+
+    center: Tuple[float, ...] = (0.0, 0.0, 0.0)
+    axis: Tuple[float, ...] = (0.0, 1.0, 0.0)
+    radius: float = 1.0
+    half_height: float = 1.0
+
+    def _frame(self, x):
+        a = _unit(_t(self.axis, x))
+        rel = x - _t(self.center, x)[None, :]
+        y = rel @ a                                     # axial coordinate
+        rad_vec = rel - y[:, None] * a[None, :]
+        return a, y, rad_vec, torch.linalg.norm(rad_vec, dim=-1)
+
+    def phi(self, x, t):
+        _, y, _, r = self._frame(x)
+        d_r = r - self.radius
+        d_y = y.abs() - self.half_height
+        outside = torch.linalg.norm(
+            torch.stack([torch.clamp(d_r, min=0.0), torch.clamp(d_y, min=0.0)], -1), dim=-1)
+        inside = torch.maximum(d_r, d_y)
+        return torch.where(inside < 0, inside, outside)
+
+    def normal(self, x, t):
+        a, y, rad_vec, r = self._frame(x)
+        d_r = r - self.radius
+        d_y = y.abs() - self.half_height
+        # degenerate points get a fixed fallback: on the axis the unit radial
+        # nearest the axis's smallest component, on the mid-plane the +axis cap
+        perp = torch.eye(len(self.axis), dtype=x.dtype, device=x.device)[
+            int(np.argmin(np.abs(np.asarray(self.axis))))]
+        perp = _unit(perp - torch.dot(perp, a) * a)
+        rad_dir = torch.where((r > 1e-12)[:, None],
+                              rad_vec / torch.clamp(r, min=1e-12)[:, None], perp[None, :])
+        cap_dir = torch.where(y >= 0, 1.0, -1.0).to(x.dtype)[:, None] * a[None, :]
+        # outside: the gradient of the 2D (d_r, d_y) distance; inside: the
+        # face of least depth
+        g_out = torch.clamp(d_r, min=0.0)[:, None] * rad_dir \
+            + torch.clamp(d_y, min=0.0)[:, None] * cap_dir
+        g_norm = torch.linalg.norm(g_out, dim=-1, keepdim=True)
+        g_out = g_out / torch.clamp(g_norm, min=1e-12)
+        g_in = torch.where((d_r > d_y)[:, None], rad_dir, cap_dir)
+        # on the surface g_out is 0: take the face direction, so the normal
+        # is a unit vector everywhere
+        g_out = torch.where(g_norm > 1e-12, g_out, g_in)
+        return torch.where((torch.maximum(d_r, d_y) < 0)[:, None], g_in, g_out)
 
 
 def grid_boundary_conditions(node_pos, t, colliders: Sequence[Collider], grid_v=None,

@@ -2,19 +2,21 @@
 
 Counterpart of ``hot_tpu.sim.simulation`` for the dense grid and the
 implicit backward-Euler integrator with inexact Newton: P2G -> grid BC ->
-Newton {linearize -> preconditioner -> CG {Hessian apply}} -> G2P -> F
-update -> advection. The Hessian is matrix-free (``ops.fused_apply``) or,
-with ``matrix_free=False``, an explicit BSR operator assembled once per
-Newton iteration (``ops.bsr``, applied by ``ops.bsr_spmv``). The
+Newton {linearize -> preconditioner -> CG or MINRES {Hessian apply}
+[-> Armijo line search]} -> G2P -> F update -> plasticity -> advection.
+The Hessian is matrix-free (``ops.fused_apply``) or, with
+``matrix_free=False``, an explicit BSR operator assembled once per Newton
+iteration (``ops.bsr``, applied by ``ops.bsr_spmv``). The
 preconditioner is none, mass Jacobi, block-Jacobi or HOT's multigrid
 (``solver.multigrid``: matrix-free quadrature levels or assembled levels
-with Galerkin or quadrature coarsening). The kernels run whenever the state
-lives on a CUDA device.
+with Galerkin or quadrature coarsening). The plasticity return maps are
+von Mises, snow (with Jp) and Drucker-Prager at a 30 degree friction angle
+(``models.plasticity``). The kernels run whenever the state lives on a
+CUDA device.
 
 The step is eager PyTorch; dt is a Python float. Not ported yet (they raise
 NotImplementedError): the sparse grid, cubic transfers, the explicit
-integrator, LBFGS, MINRES, line search, the composed Galerkin multigrid
-level, plasticity.
+integrator, LBFGS, the composed Galerkin multigrid level.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from hot_tpu_torch.models import constitutive as cm
+from hot_tpu_torch.models import plasticity as plast
 from hot_tpu_torch.ops import bsr
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bspline import apic_d_inv_factor
@@ -48,6 +51,11 @@ class StepStats(NamedTuple):
     kinetic_energy: float
     potential_energy: float
     active_nodes: int
+    ls_backtracks: int          # line-search halvings (0 without line search)
+
+
+PLASTICITY = ("von_mises", "snow", "drucker_prager")
+DRUCKER_PRAGER_FRICTION_DEG = 30.0
 
 
 def _check_supported(cfg: SimConfig, plasticity):
@@ -58,16 +66,28 @@ def _check_supported(cfg: SimConfig, plasticity):
         (cfg.transfer_kernel != "quadratic", f"transfer_kernel='{cfg.transfer_kernel}'"),
         (sol.integrator != "implicit", f"integrator='{sol.integrator}'"),
         (sol.nonlinear != "newton", f"nonlinear='{sol.nonlinear}'"),
-        (sol.linear_solver != "cg", f"linear_solver='{sol.linear_solver}'"),
-        (sol.line_search, "line_search=True"),
         (sol.preconditioner == "multigrid" and mgc.assembled and mgc.coarsening == "galerkin"
          and mgc.assembled_from_level > 0,
          "composed Galerkin multigrid (assembled_from_level > 0, coarsening='galerkin')"),
-        (plasticity is not None, f"plasticity='{plasticity}'"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported to hot_tpu_torch yet")
+    if plasticity is not None and plasticity not in PLASTICITY:
+        raise ValueError(f"unknown plasticity '{plasticity}'; have {PLASTICITY}")
+
+
+def return_map(plasticity: Optional[str], F, state: ParticleState):
+    """(F, Jp) after the plasticity return map of the trial F (n, d, d)."""
+    if plasticity == "von_mises":
+        return plast.VonMisesHencky.project(F, state.mu, state.lam, state.yield_stress), state.Jp
+    if plasticity == "snow":
+        F, jp_ratio = plast.SnowPlasticity.project(F)
+        return F, state.Jp * jp_ratio
+    if plasticity == "drucker_prager":
+        alpha = plast.DruckerPrager.alpha_from_friction_angle(DRUCKER_PRAGER_FRICTION_DEG)
+        return plast.DruckerPrager.project(F, state.mu, state.lam, alpha), state.Jp
+    return F, state.Jp
 
 
 def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfig,
@@ -181,6 +201,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
         max_cg=sol.max_cg,
         adaptive_forcing=sol.adaptive_forcing,
         linear_solver=sol.linear_solver,
+        energy=lambda v: obj_mod.energy(model, objective, v),
         line_search=sol.line_search,
         precond_refresh=sol.precond_refresh,
     )
@@ -196,10 +217,10 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     else:
         v_p, C_next = v_pic, C_new
     eye = torch.eye(dim, dtype=dtype, device=device)
-    F_new = (eye + dt * grad_v) @ state.F
+    F_new, Jp_new = return_map(plasticity, (eye + dt * grad_v) @ state.F, state)
     hi = (torch.tensor(res, dtype=dtype, device=device) - 3.0) * dx
     x_new = torch.minimum(torch.clamp(state.x + dt * v_pic, min=2.0 * dx), hi[None, :])
-    new_state = state.replace(x=x_new, v=v_p, C=C_next, F=F_new)
+    new_state = state.replace(x=x_new, v=v_p, C=C_next, F=F_new, Jp=Jp_new)
 
     # ---- diagnostics (one readback)
     if cfg.compute_energy:
@@ -216,7 +237,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
         newton_iters=result.iters, cg_iters=result.cg_iters,
         cn_residual=result.cn_residual, cn_residual0=result.cn_residual0,
         converged=result.converged, max_velocity=vmax, kinetic_energy=ke,
-        potential_energy=pe, active_nodes=int(n_active),
+        potential_energy=pe, active_nodes=int(n_active), ls_backtracks=result.ls_backtracks,
     )
     return new_state, stats
 

@@ -89,6 +89,11 @@ def make_particle_state(x, *, velocity=None, density: float = 1000.0,
     )
 
 
+def concatenate_states(states) -> ParticleState:
+    """The particle sets of `states` as one (multi-object scenes)."""
+    return ParticleState(**{f: torch.cat([getattr(s, f) for s in states]) for f in FIELDS})
+
+
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device, dtype) -> ParticleState:
     """A ParticleState from numpy arrays of every field (the field names of
     ``hot_tpu.sim.state.ParticleState``), e.g. to carry a state across."""

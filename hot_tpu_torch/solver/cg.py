@@ -1,9 +1,12 @@
-"""Matrix-free preconditioned projected CG over an abstract operator.
+"""Matrix-free preconditioned projected CG and conjugate residual (MINRES)
+over an abstract operator.
 
-Counterpart of ``hot_tpu.solver.cg.cg_solve``. The loop runs on the host:
-each iteration reads one scalar (the residual norm) back from the device to
-decide whether to stop. The operator is applied once for the initial
-residual and once per iteration.
+Counterpart of ``hot_tpu.solver.cg`` (``cg_solve``, ``minres_solve``). The
+loops run on the host: each iteration reads one scalar (the residual norm)
+back from the device to decide whether to stop. CG applies the operator
+once for the initial residual and once per iteration; MINRES once more,
+for the first preconditioned residual, and the preconditioner twice per
+iteration.
 
 ``project`` enforces Dirichlet/collision constraints: an orthogonal
 projector applied to residuals and directions; the operator acts as the
@@ -60,6 +63,52 @@ def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable]
         beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
         p = z + beta * p
         rz = rz_new
+        k += 1
+        rnorm = torch.sqrt(_dot(r, r))
+    return CGResult(x=x, iters=k, residual=rnorm, residual0=rnorm0,
+                    converged=bool(rnorm <= threshold))
+
+
+def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,
+                 project: Optional[Callable] = None, tol=1e-3, abs_tol: float = 0.0,
+                 max_iters: int = 200) -> CGResult:
+    """Preconditioned conjugate residual (MINRES-equivalent for symmetric A,
+    so it takes a mildly indefinite operator, e.g. the Hessian without SPD
+    projection), `precondition` SPD:
+
+        z = M^-1 r,  alpha = (z . Az) / (Ap . M^-1 Ap),
+        beta = (z' . Az') / (z . Az),  p = z' + beta p,  Ap = Az' + beta Ap.
+
+    hot_tpu's minres_solve divides by Ap . Ap, which is this only for M = I
+    and diverges under any other preconditioner; with M = I the two take
+    the same iterates. Stops as cg_solve does. Each iteration applies the
+    operator once and the preconditioner twice."""
+    precondition = precondition or _identity
+    project = project or _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = project(b - multiply(x))
+    z = project(precondition(r))
+    Az = project(multiply(z))
+    p, Ap = z, Az
+    zAz = _dot(z, Az)
+    rnorm0 = torch.sqrt(_dot(r, r))
+    threshold = torch.clamp(tol * rnorm0, min=abs_tol)
+    rnorm = rnorm0
+    k = 0
+    while k < max_iters and bool(rnorm > threshold):
+        ApMAp = _dot(Ap, project(precondition(Ap)))
+        alpha = torch.where(ApMAp.abs() > 0,
+                            zAz / torch.where(ApMAp == 0, torch.ones_like(ApMAp), ApMAp),
+                            torch.zeros_like(ApMAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = project(precondition(r))
+        Az = project(multiply(z))
+        zAz_new = _dot(z, Az)
+        beta = zAz_new / torch.where(zAz == 0, torch.ones_like(zAz), zAz)
+        p = z + beta * p
+        Ap = Az + beta * Ap
+        zAz = zAz_new
         k += 1
         rnorm = torch.sqrt(_dot(r, r))
     return CGResult(x=x, iters=k, residual=rnorm, residual0=rnorm0,

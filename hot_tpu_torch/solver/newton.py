@@ -5,7 +5,10 @@ Counterpart of ``hot_tpu.solver.newton.newton_solve``, as a host loop:
     solve H_k dv = -r_k by preconditioned CG to forcing tolerance eta_k
     v_{k+1} = v_k + dv
 with eta_k = clip(sqrt(cn_k / cn_0), cg_tol, 0.5) when adaptive_forcing.
-Line search and MINRES are not ported yet.
+The inner solver is CG or MINRES (``linear_solver``). With ``line_search``
+the update is v + alpha dv, alpha halved from 1 (at most ls_max_backtracks
+times) until the Armijo condition E(v + alpha dv) <= E(v) + 1e-4 alpha
+r . dv holds; each trial is one energy evaluation and one readback.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ from typing import Callable, List, NamedTuple
 
 import torch
 
-from hot_tpu_torch.solver.cg import cg_solve
+from hot_tpu_torch.solver.cg import cg_solve, minres_solve
+
+SOLVERS = {"cg": cg_solve, "minres": minres_solve}
 
 
 class NewtonResult(NamedTuple):
@@ -25,6 +30,7 @@ class NewtonResult(NamedTuple):
     cn_residual0: float
     converged: bool
     cn_history: List[float]     # CN residual after each iteration, from cn0
+    ls_backtracks: int          # line-search halvings across the solve
 
 
 def newton_solve(*, multiply: Callable, project: Callable, precondition: Callable,
@@ -33,7 +39,8 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
                  build_preconditioner: Callable = lambda hess: None,
                  max_newton: int = 10, cn_eps: float = 1e-2, abs_tol: float = 0.0,
                  cg_tol: float = 1e-3, max_cg: int = 200, adaptive_forcing: bool = True,
-                 linear_solver: str = "cg", line_search: bool = False,
+                 linear_solver: str = "cg", energy: Callable = None,
+                 line_search: bool = False, ls_max_backtracks: int = 8,
                  precond_refresh: str = "newton", refresh_preconditioner: Callable = None,
                  axis_name: str = None) -> NewtonResult:
     """Run the inexact Newton loop.
@@ -44,11 +51,12 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     v0 and reuses it. With refresh_preconditioner(hess, base) and "newton",
     a base is built once at v0 and each iterate refreshes part of it (the
     lagged Galerkin chain of MultigridConfig.rap_refresh="lagged").
+    line_search needs energy(v), the objective the residual is the gradient of.
     """
-    if linear_solver != "cg":
-        raise NotImplementedError(f"linear_solver='{linear_solver}' is not ported yet")
-    if line_search:
-        raise NotImplementedError("line search is not ported yet")
+    if linear_solver not in SOLVERS:
+        raise ValueError(f"unknown linear_solver '{linear_solver}'")
+    if line_search and energy is None:
+        raise ValueError("line_search needs the energy callable")
     if axis_name is not None:
         raise NotImplementedError("distributed Newton is not ported yet")
     if precond_refresh not in ("newton", "step"):
@@ -63,7 +71,8 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     partial = refresh_preconditioner is not None and precond_refresh == "newton"
     frozen = build_preconditioner(hess) if precond_refresh == "step" or partial else None
     history = [float(cn0)]
-    k = cg_total = 0
+    solve = SOLVERS[linear_solver]
+    k = cg_total = backtracks = 0
     while k < max_newton:
         cn_f, rnorm = torch.stack([cn, torch.sqrt(torch.sum(r * r))]).tolist()
         if not (cn_f > cn_eps and rnorm > abs_tol):
@@ -78,10 +87,18 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
             eta = torch.clamp(torch.sqrt(cn / torch.clamp(cn0, min=1e-30)), cg_tol, 0.5)
         else:
             eta = cg_tol
-        res = cg_solve(lambda w: multiply(hess, w), -r,
-                       precondition=lambda z: precondition(pstate, z),
-                       project=project, tol=eta, max_iters=max_cg)
-        v = v + res.x
+        res = solve(lambda w: multiply(hess, w), -r,
+                    precondition=lambda z: precondition(pstate, z),
+                    project=project, tol=eta, max_iters=max_cg)
+        alpha = 1.0
+        if line_search:
+            E0, slope = energy(v), torch.sum(r * res.x)
+            j = 0
+            while j < ls_max_backtracks and not bool(
+                    energy(v + alpha * res.x) <= E0 + 1e-4 * alpha * slope):
+                alpha, j = 0.5 * alpha, j + 1
+            backtracks += j
+        v = v + alpha * res.x
         r, hess = linearize(v)
         cn = cn_norm(r)
         k += 1
@@ -90,4 +107,4 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     cn_f = float(cn)
     return NewtonResult(v=v, iters=k, cg_iters=cg_total, cn_residual=cn_f,
                         cn_residual0=history[0], converged=cn_f <= cn_eps,
-                        cn_history=history)
+                        cn_history=history, ls_backtracks=backtracks)

@@ -33,7 +33,7 @@ from hot_tpu_torch.scenes import build_scene as tbuild
 from hot_tpu_torch.sim import Simulation as TSimulation
 from hot_tpu_torch.utils.config import config_from_overrides as t_overrides
 
-from test_torch_ref import assert_close, carry_state, t2n
+from test_torch_ref import assert_close, carry_state, one_torch_thread, t2n  # noqa: F401
 
 TOL = 1e-12
 DT = 2e-3

@@ -70,7 +70,9 @@ def test_no_jax_or_hot_tpu_imports_in_source():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, hot_tpu_torch, hot_tpu_torch.sim, hot_tpu_torch.scenes, "
-            "hot_tpu_torch.cli, hot_tpu_torch.ops.fused_apply, hot_tpu_torch.ops.fused_linearize; "
+            "hot_tpu_torch.cli, hot_tpu_torch.ops.fused_apply, hot_tpu_torch.ops.fused_linearize, "
+            "hot_tpu_torch.io.mesh, hot_tpu_torch.models.plasticity, hot_tpu_torch.sim.analysis, "
+            "hot_tpu_torch.sim.difftest; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hot_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=PKG.parent, timeout=120)

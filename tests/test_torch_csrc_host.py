@@ -252,7 +252,7 @@ def _ptr(t):
 
 
 def _check_kernels(host_lib, c, model_name, dtype, threads=128,
-                   window_nodes=fa.WINDOW_NODES, stats=(None, None)):
+                   window_nodes=fa.WINDOW_NODES, stats=(None, None), project=True):
     """Both host-compiled kernels against their plain versions on inputs c."""
     model = MODEL_REGISTRY[model_name]
     x = fa.soa(c["x"])
@@ -266,11 +266,11 @@ def _check_kernels(host_lib, c, model_name, dtype, threads=128,
     res = cuda_lib.int_array(c["res"])
     rc = host_lib.hot_fused_linearize(
         fl.MODEL_CODES[model_name], code, d, _ptr(c["v"]), _ptr(x), c["dx"], res, _ptr(F),
-        _ptr(c["mu"]), _ptr(c["lam"]), _ptr(c["V0"]), DT, 1, _ptr(f), _ptr(U), _ptr(V),
-        _ptr(A), _ptr(bp), _ptr(bm), n, threads, window_nodes, _ptr(stats[0]), None)
+        _ptr(c["mu"]), _ptr(c["lam"]), _ptr(c["V0"]), DT, int(project), _ptr(f), _ptr(U),
+        _ptr(V), _ptr(A), _ptr(bp), _ptr(bm), n, threads, window_nodes, _ptr(stats[0]), None)
     assert rc == 0
     want = fl.fused_linearize_plain(c["v"], x, c["dx"], c["res"], F, c["mu"], c["lam"],
-                                    c["V0"], DT, model)
+                                    c["V0"], DT, model, project)
     tol_lin, tol_apply = TOL[dtype]
     for got, ref in zip((f, A, bp, bm), (want[0], want[3], want[4], want[5])):
         assert _rel(got, ref) <= tol_lin
@@ -322,6 +322,22 @@ def test_host_compiled_kernels_indefinite_hessian(host_lib, rng, d, model_name, 
     indefinite = torch.linalg.eigvalsh(sym).min(1).values <= 0
     assert 0 < int(indefinite.sum()) < indefinite.numel()
     _check_kernels(host_lib, c, model_name, dtype)
+
+
+@pytest.mark.parametrize("model_name", ["fixed_corotated", "stvk_hencky"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_kernels_unprojected_heterogeneous(host_lib, rng, d, model_name):
+    """The linearize's project=False branch (MINRES runs with it) on F
+    perturbed by 0.5, with per-particle Young's moduli spread over four
+    decades (the stacked boxes' 1e4..1e8), in fp64: the unclamped A and
+    b+- must be the plain version's, indefinite entries included."""
+    c = _inputs(d, torch.float64, rng, noise=0.5)
+    E = 10.0 ** torch.as_tensor(rng.uniform(4.0, 8.0, c["x"].shape[0]))
+    c["mu"], c["lam"] = cm.lame_parameters(E, 0.3)
+    ctx = cm.hessian_context(MODEL_REGISTRY[model_name], c["F"], c["mu"], c["lam"],
+                             project=False)
+    assert bool((ctx.b_minus < 0).any() | (ctx.b_plus < 0).any())
+    _check_kernels(host_lib, c, model_name, torch.float64, project=False)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

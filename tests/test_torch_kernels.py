@@ -32,7 +32,7 @@ from hot_tpu_torch.ops import fused_apply as tfa
 from hot_tpu_torch.ops import fused_linearize as tfl
 from hot_tpu_torch.sim import objective as tobj
 
-from test_torch_ref import DT, assert_close, objective_pair, t2n
+from test_torch_ref import DT, assert_close, objective_pair, one_torch_thread, t2n  # noqa: F401
 
 TOL = 1e-10
 SCENES = {2: "block_drop_2d", 3: "twisting_bar_3d"}

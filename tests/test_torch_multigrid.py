@@ -44,7 +44,7 @@ from hot_tpu_torch.solver.newton import newton_solve as t_newton
 from hot_tpu_torch.utils.config import MultigridConfig as TMGConfig
 from hot_tpu_torch.utils.config import config_from_overrides as t_overrides
 
-from test_torch_ref import assert_close, carry_state, t2n
+from test_torch_ref import assert_close, carry_state, one_torch_thread, t2n  # noqa: F401
 from test_torch_solver import _newton_problem
 
 DT = 2e-3

@@ -19,6 +19,8 @@ from hot_tpu_torch.models import constitutive as tcm
 from hot_tpu_torch.ops import bspline as tbs
 from hot_tpu_torch.ops import svd as tsvd
 
+from test_torch_ref import one_torch_thread  # noqa: F401
+
 TOL = 1e-10
 
 

@@ -15,7 +15,7 @@ import torch
 from hot_tpu.sim import objective as jobj
 from hot_tpu_torch.sim import objective as tobj
 
-from test_torch_ref import DT, assert_close, objective_pair
+from test_torch_ref import DT, assert_close, objective_pair, one_torch_thread  # noqa: F401
 
 TOL = 1e-10
 SCENES = {2: "block_drop_2d", 3: "twisting_bar_3d"}

@@ -6,6 +6,7 @@ from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from hot_tpu.models import constitutive as jcm
@@ -18,6 +19,18 @@ from hot_tpu_torch.sim import objective as tobj
 from hot_tpu_torch.sim.state import FIELDS, state_from_numpy
 
 SMALL = {"twisting_bar_3d": dict(res=16, ppc=2), "block_drop_2d": dict(res=24)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Each port test file runs on one torch thread (files that import this
+    fixture use it too): the suite runs several files at once
+    (pytest-xdist), and the default intra-op threads, one per core in every
+    worker, made the small-tensor tests up to eight times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 DT = 2e-3
 
 

@@ -19,7 +19,7 @@ from hot_tpu_torch.ops import spgemm as tspgemm
 from hot_tpu_torch.ops import transfer as ttr
 
 from test_torch_bsr import operator_pair
-from test_torch_ref import assert_close, carry_state, t2n
+from test_torch_ref import assert_close, carry_state, one_torch_thread, t2n  # noqa: F401
 
 TOL = 1e-12
 

@@ -30,7 +30,7 @@ from hot_tpu_torch.sim import Simulation as TSimulation
 from hot_tpu_torch.sim.simulation import advance_one_step as t_advance
 
 from reference_mpm import advance_one_step_ref
-from test_torch_ref import carry_state, t2n
+from test_torch_ref import carry_state, one_torch_thread, t2n  # noqa: F401
 
 
 def _impact_state(scene, dt):

@@ -20,7 +20,7 @@ from hot_tpu_torch.scenes import build_scene as tbuild
 from hot_tpu_torch.sim import collision as tcol
 from hot_tpu_torch.sim.seeding import sample_box as t_sample_box
 
-from test_torch_ref import SMALL, assert_close, carry_state, t2n
+from test_torch_ref import SMALL, assert_close, carry_state, one_torch_thread, t2n  # noqa: F401
 
 TOL = 1e-10
 SCENES = ["twisting_bar_3d", "block_drop_2d"]

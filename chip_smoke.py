@@ -22,7 +22,8 @@ Phases, each printing one JSON line:
               kernel's device time per launch (torch.profiler) and CUDA-event
               times of whole calls (the kernel's wrapper, its plain version,
               the library call)
-  3b timing   the particle kernels at 64^3 and 128^3 (fp32, fixed-corotated):
+  3b timing   the particle kernels at 64^3 and 128^3 (fp32, fixed-corotated;
+              the linearize also under Neo-Hookean and linear corotated):
               device time, plain time, the bound from the run's inputs (x and
               the touched nodes) beside the stencil-table input set's; with
               --baseline DIR, the kernels built from DIR (an earlier csrc/)
@@ -59,6 +60,28 @@ Phases, each printing one JSON line:
   10 solver_options  the 64^3 twisting bar, 3 steps from stress_state, under
               MINRES without SPD projection and with Armijo line search:
               Newton, MINRES/CG, backtracks, launch counters checked
+  11 cubic    12 steps of the 64^3 bar (ppc 8, dt 2e-3, fp32) with cubic
+              transfers under block-Jacobi: finite, converged, no dt retry,
+              launch counters equal sum(newton + 1) and sum(cg + newton);
+              then 3 more steps under the default (matrix-free) multigrid:
+              finite, Newton at work, every attempt's apply
+              launches as derived
+  12 models   the 64^3 bar under Neo-Hookean and under linear corotated, 3
+              steps each from stress_state, launch counters checked
+  13 baselines  the explicit integrator on block_drop_2d (32^2, E 1e4, dt
+              5e-4, 200 steps from stress_state: finite, deformed, above
+              the floor, no kernel launch) and L-BFGS on the 32^3 bar from
+              stress_state (3 steps: converged, one linearize launch per
+              gradient, no apply)
+  14 io       the CLI on the card, block_drop_2d, 2 frames in bgeo with a
+              checkpoint each; resumed from the first checkpoint, frame 1
+              within 1e-5 dx of the uninterrupted run's; read_bgeo of a
+              frame equal to its checkpoint's x bit for bit
+Phase 3 also holds both particle kernels with the cubic stencil (4 nodes per
+axis, every model) and the Neo-Hookean and linear-corotated linearize
+against their plain versions, phase 3b times the cubic kernels at 64^3 and
+128^3 beside the quadratic ones, and phase 6 adds the 32^3 bar with cubic
+transfers, under Neo-Hookean and under L-BFGS (iterations within 2).
 Then each phase's seconds, the kernels' summary and, last,
 {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; it needs a CUDA device and exits
@@ -74,6 +97,7 @@ import argparse
 import ctypes
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -112,8 +136,19 @@ FP32_FLOPS = 67e12
 #     117, scatter 486: about 3,030 (fixed-corotated); plus 1,290 for the
 #     clamp's eigensolve (6 sweeps and the product back) where sym(A) is not
 #     positive definite, counted on each run's inputs
-FLOPS_PER_PARTICLE = {"fused_apply": 1600, "fused_linearize": 3030}
+# With the cubic stencil the per-node terms (node weights 8, gather 18,
+# scatter 18 flops a node) grow from 27 to 64 nodes: apply about 3,230,
+# linearize about 4,690.
+FLOPS_PER_PARTICLE = {("fused_apply", 3): 1600, ("fused_linearize", 3): 3030,
+                      ("fused_apply", 4): 3230, ("fused_linearize", 4): 4690}
 CLAMP_FLOPS = 1290
+# Neo-Hookean and linear corotated are the two models the linearize kernel
+# gained with the cubic stencil; MODELS holds all four
+NEW_MODELS = ("neo_hookean", "linear_corotated")
+MODELS = ("fixed_corotated", "stvk_hencky") + NEW_MODELS
+# the card's restart against the uninterrupted run (fp32, atomics reorder
+# sums), in units of dx
+RESUME_TOL = 1e-5
 # the C interface of the earlier particle kernels (--baseline), which took
 # the stencil as a table: node ids (s, n) int32 and weight gradients (s*d, n)
 TABLE_SIGNATURES = {
@@ -124,6 +159,8 @@ TABLE_SIGNATURES = {
                            + [ctypes.c_longlong, ctypes.c_void_p],
 }
 SWEEP = {"threads": (128, 256), "window_nodes": (0, 512, 1024, 1536, 2048)}
+# the cubic stencil: the block size (64 is what fp64 fits) at the default window
+SWEEP_CUBIC = {"threads": (64, 128, 256), "window_nodes": (1536,)}
 CONFIG3 = {"solver.preconditioner": "multigrid", "solver.multigrid.levels": 4,
            "solver.multigrid.smoother": "chebyshev", "solver.multigrid.coarse_solver": "direct",
            "solver.multigrid.assembled": True}
@@ -282,13 +319,14 @@ def check_spmv(mats, dtype, rng, timing):
 
 
 def kernel_inputs(scene_name, model_name, dtype, rng, res, permute=False, noise=0.1,
-                  project=True, plastic=False):
+                  project=True, plastic=False, kernel="quadratic"):
     """One input set of the particle kernels: a scene's particles (F
     perturbed by seeded noise of scale `noise`, then passed through
     Drucker-Prager's return map if `plastic`; in a random order if
-    `permute`), random grid vectors v and w, and the particles' stencil on
-    the grid. The linearize runs with SPD projection if `project`. For a
-    scene of several bodies, `groups` holds each body's particle slice."""
+    `permute`), random grid vectors v and w, and the particles' stencil of
+    the transfer kernel family on the grid. The linearize runs with SPD
+    projection if `project`. For a scene of several bodies, `groups` holds
+    each body's particle slice."""
     from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
     from hot_tpu_torch.models.plasticity import DruckerPrager
     from hot_tpu_torch.ops import transfer
@@ -312,22 +350,22 @@ def kernel_inputs(scene_name, model_name, dtype, rng, res, permute=False, noise=
         perm = torch.as_tensor(rng.permutation(n), device="cuda")
         x, F, mu, lam, V0 = (t[perm].contiguous() for t in (x, F, mu, lam, V0))
     grid = (res,) * d
-    st = transfer.particle_stencil(x, 1.0 / res, grid)
+    st = transfer.particle_stencil(x, 1.0 / res, grid, kernel=kernel)
     n_nodes = res ** d
     v = torch.as_tensor(rng.standard_normal((n_nodes, d)), dtype=dtype, device="cuda")
     w = torch.as_tensor(rng.standard_normal((n_nodes, d)), dtype=dtype, device="cuda")
     return dict(model=MODEL_REGISTRY[model_name], v=v, w=w, F=F, x_soa=soa(x), F_soa=soa(F),
                 dx=1.0 / res, res=grid, mu=mu, lam=lam, V0=V0, st=st, n=n, d=d,
-                project=project, groups=groups if len(groups) > 1 else [])
+                project=project, groups=groups if len(groups) > 1 else [], kernel=kernel)
 
 
 def lin_args(c):
     return (c["v"], c["x_soa"], c["dx"], c["res"], c["F_soa"], c["mu"], c["lam"], c["V0"], DT,
-            c["model"], c["project"])
+            c["model"], c["project"], c["kernel"])
 
 
 def apply_args(c, ctx):
-    return (c["w"], c["x_soa"], c["dx"], c["res"], c["F_soa"], *ctx, c["V0"], DT)
+    return (c["w"], c["x_soa"], c["dx"], c["res"], c["F_soa"], *ctx, c["V0"], DT, c["kernel"])
 
 
 class WindowStats:
@@ -477,17 +515,24 @@ def clamp_share(c):
     return 1.0 - float(pd.double().mean())
 
 
-def time_particle_kernels(res, rng, baseline_lib, sweep):
-    """fp32 3D fixed-corotated twisting bar at res^3: each particle kernel's
-    device time per launch (profiler), its plain version's time, the bounds
-    from this run's inputs; the baseline kernels on the same particles in
-    turns (baseline, current, current, baseline) when given; a sweep of
-    block size and window budget when asked."""
+def time_particle_kernels(res, rng, baseline_lib, sweep, kernel="quadratic",
+                          model_name="fixed_corotated",
+                          names=("fused_linearize", "fused_apply")):
+    """fp32 3D twisting bar at res^3 with the stencil of the transfer kernel
+    family and the model (its flops counted as fixed corotated's): each of
+    the particle kernels `names`' device time per launch (profiler), its
+    plain version's time, the bounds from this run's inputs; the baseline
+    kernels (quadratic only) on the same particles in turns (baseline,
+    current, current, baseline) when given; a sweep of block size and
+    window budget when asked."""
     from hot_tpu_torch.ops import fused_apply as fa
     from hot_tpu_torch.ops import fused_linearize as fl
+    from hot_tpu_torch.ops.bspline import kernel_width
 
-    c = kernel_inputs("twisting_bar_3d", "fixed_corotated", torch.float32, rng, res)
-    n, d = c["n"], c["d"]
+    c = kernel_inputs("twisting_bar_3d", model_name, torch.float32, rng, res, kernel=kernel)
+    n, d, width = c["n"], c["d"], kernel_width(kernel)
+    if width != 3:
+        baseline_lib = None
     ctx = fl.fused_linearize_plain(*lin_args(c))[1:]
     cur = {"fused_linearize": lambda **kw: fl.fused_linearize_cuda(*lin_args(c), **kw),
            "fused_apply": lambda **kw: fa.fused_apply_cuda(*apply_args(c, ctx), **kw)}
@@ -496,9 +541,11 @@ def time_particle_kernels(res, rng, baseline_lib, sweep):
     old = baseline_calls(baseline_lib, c, ctx) if baseline_lib is not None else None
     touched = int(torch.unique(c["st"].node_ids).numel())
     clamped = clamp_share(c)
-    out = dict(res=res, particles=n, touched_nodes=touched, clamp_share=clamped)
-    for name, fn in cur.items():
-        kernel = name + "_kernel"
+    out = dict(res=res, kernel=kernel, model=model_name, particles=n, touched_nodes=touched,
+               clamp_share=clamped, launch_config=fa.launch_config(d, width, 4))
+    for name in names:
+        fn = cur[name]
+        cuda_name = name + "_kernel"
         row = {}
         if old is not None:
             want = plain[name]()
@@ -507,26 +554,28 @@ def time_particle_kernels(res, rng, baseline_lib, sweep):
             turns = [("baseline", old[name]), ("current", fn), ("current", fn),
                      ("baseline", old[name])]
             for who, f in turns:
-                row.setdefault(who + "_ms", []).append(device_ms(f, 50, kernel)[0])
-        row["ms"], row["ms_source"] = device_ms(fn, 50, kernel)
+                row.setdefault(who + "_ms", []).append(device_ms(f, 50, cuda_name)[0])
+        row["ms"], row["ms_source"] = device_ms(fn, 50, cuda_name)
         row["plain_ms"] = cuda_time_ms(plain[name], 3 if res > 64 else 5)
         nbytes = particle_kernel_bytes(name, n, touched, d, 4)
-        flops = FLOPS_PER_PARTICLE[name] + (CLAMP_FLOPS * clamped if name == "fused_linearize"
-                                            else 0)
+        flops = FLOPS_PER_PARTICLE[name, width] + (
+            CLAMP_FLOPS * clamped if name == "fused_linearize" else 0)
         row["bytes"], row["flops"] = nbytes, n * flops
         row["bound_ms"], row["bound_by"] = bound(nbytes, row["flops"])
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        row["table_bytes"] = table_kernel_bytes(name, n, res ** d, d, 4)
-        row["table_bound_ms"] = bound(row["table_bytes"], row["flops"])[0]
+        if width == 3:
+            row["table_bytes"] = table_kernel_bytes(name, n, res ** d, d, 4)
+            row["table_bound_ms"] = bound(row["table_bytes"], row["flops"])[0]
         if sweep:
             row["sweep"] = []
-            for threads in SWEEP["threads"]:
-                for nodes in SWEEP["window_nodes"]:
+            grid = SWEEP if width == 3 else SWEEP_CUBIC
+            for threads in grid["threads"]:
+                for nodes in grid["window_nodes"]:
                     with WindowStats() as ws:
                         fn(threads=threads, window_nodes=nodes)
                         share = ws.read()[name]["overflow_share"]
                     ms = device_ms(lambda: fn(threads=threads, window_nodes=nodes), 20,
-                                   kernel)[0]
+                                   cuda_name)[0]
                     row["sweep"].append(dict(threads=threads, window_nodes=nodes, ms=ms,
                                              overflow_share=share))
         out[name] = row
@@ -715,6 +764,54 @@ def assert_steps_ok(sim, stats, row, max_retries=0):
     assert stats[0].newton_iters > 0, row
 
 
+def mf_mg_apply_launches(mgc, newton, cg):
+    """(per build, per V-cycle, total) fused_apply launches of the default
+    multigrid, every level matrix-free, from solver/multigrid.py: per build
+    (one per Newton iteration that solves), power_iters on every level (each
+    needs Chebyshev's lambda_max when the coarse solve is the smoother); per
+    V-cycle (one per CG iteration plus one for the initial residual), on
+    each level above the coarsest (pre_smooth + post_smooth) x
+    chebyshev_order smoother applications and one residual, and
+    coarse_iters x chebyshev_order on the coarsest; plus the outer CG's
+    sum(cg) + sum(newton)."""
+    assert (mgc.smoother, mgc.coarse_solver, mgc.cycles, mgc.assembled) == (
+        "chebyshev", "smoother", 1, False), mgc
+    per_build = mgc.power_iters * mgc.levels
+    per_vcycle = ((mgc.levels - 1) * ((mgc.pre_smooth + mgc.post_smooth) * mgc.chebyshev_order + 1)
+                  + mgc.coarse_iters * mgc.chebyshev_order)
+    solves = sum(cg) + sum(newton)
+    return per_build, per_vcycle, solves + per_build * sum(newton) + per_vcycle * solves
+
+
+def card_against_cpu(overrides, model_name=None):
+    """3 steps at 32^3 (ppc 4) of the twisting bar with config overrides
+    (and a model) on the card (fp32) and on the CPU (plain versions, fp64)
+    from one state: per step the (newton, cg) pairs and max |x_card -
+    x_cpu| / dx."""
+    from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
+    from hot_tpu_torch.scenes import build_scene
+    from hot_tpu_torch.sim import Simulation
+    from hot_tpu_torch.sim.state import state_from_numpy
+    from hot_tpu_torch.utils.config import config_from_overrides
+
+    base = build_scene("twisting_bar_3d", device="cpu", res=32, ppc=4, dtype=torch.float64)
+    arrays = base["state"].to_numpy()
+    sims = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        sc = build_scene("twisting_bar_3d", device=dev, res=32, ppc=4, dtype=dtype)
+        model = MODEL_REGISTRY[model_name] if model_name else sc["model"]
+        sims[dev] = Simulation(config_from_overrides(sc["cfg"], overrides),
+                               state_from_numpy(arrays, dev, dtype), model, sc["colliders"])
+    rows = []
+    for _ in range(3):
+        g, c = sims["cuda"].step(DT), sims["cpu"].step(DT)
+        dxmax = float((sims["cuda"].state.x.double().cpu() - sims["cpu"].state.x).abs().max())
+        rows.append(dict(newton=(g.newton_iters, c.newton_iters), cg=(g.cg_iters, c.cg_iters),
+                         converged=(g.converged, c.converged),
+                         x_diff_over_dx=dxmax / base["cfg"].dx))
+    return base["state"].n, rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="DIR",
@@ -778,21 +875,27 @@ def main(argv=None):
         # fp32 and fp64 differ by 1e-3), so it is held in fp64. The stacked
         # boxes' mu and lam span four decades (errors also per box); MINRES
         # runs the linearize without projection; the sand column's StVK-Hencky
-        # sees plastically projected F
-        cases = [(scene_name, 64, m, False, 0.1, True, False)
+        # sees plastically projected F. Then the two models added with the
+        # cubic stencil, quadratic, and every model with the cubic stencil
+        Q, C = "quadratic", "cubic"
+        cases = [(scene_name, 64, m, False, 0.1, True, False, Q)
                  for scene_name in ("twisting_bar_3d", "block_drop_2d") for m in models]
-        cases += [("twisting_bar_3d", 64, "fixed_corotated", True, 0.1, True, False)]
-        cases += [("twisting_bar_3d", 64, m, False, 0.5, True, False) for m in models
+        cases += [("twisting_bar_3d", 64, "fixed_corotated", True, 0.1, True, False, Q)]
+        cases += [("twisting_bar_3d", 64, m, False, 0.5, True, False, Q) for m in models
                   if dtype == torch.float64 or m == "fixed_corotated"]
-        cases += [("stacked_boxes_3d", 64, "fixed_corotated", False, 0.1, True, False)]
-        cases += [("twisting_bar_3d", 64, m, False, 0.1, False, False) for m in models]
-        cases += [("sand_column_2d", 64, "stvk_hencky", False, 0.1, True, True)]
-        for scene_name, res, model_name, permute, noise, project, plastic in cases:
+        cases += [("stacked_boxes_3d", 64, "fixed_corotated", False, 0.1, True, False, Q)]
+        cases += [("twisting_bar_3d", 64, m, False, 0.1, False, False, Q) for m in models]
+        cases += [("sand_column_2d", 64, "stvk_hencky", False, 0.1, True, True, Q)]
+        cases += [(scene_name, 64, m, False, 0.1, True, False, kernel)
+                  for kernel, names in ((Q, NEW_MODELS), (C, MODELS)) for m in names
+                  for scene_name in ("twisting_bar_3d", "block_drop_2d")]
+        for scene_name, res, model_name, permute, noise, project, plastic, kernel in cases:
             case = kernel_inputs(scene_name, model_name, dtype, rng, res, permute, noise,
-                                 project, plastic)
+                                 project, plastic, kernel)
             clamped = clamp_share(case)
             errs, limits, bad, windows = check_kernels(case)
             emit("kernels", scene=scene_name, res=res, n=case["n"], model=model_name,
+                 kernel=kernel,
                  dtype=str(dtype), order="random" if permute else "lattice", F_noise=noise,
                  project=project, F_through_drucker_prager=plastic,
                  clamp_share=clamped, rel_err={k: v[1] for k, v in errs.items()},
@@ -811,13 +914,20 @@ def main(argv=None):
             if (dtype == torch.float32 and scene_name == "twisting_bar_3d"
                     and model_name == "fixed_corotated" and not permute and noise == 0.1
                     and project):
-                summary["errs"] = errs
+                summary["errs" if kernel == Q else "errs_cubic"] = errs
             del case
     for res in (64, 128):
-        timing = time_particle_kernels(res, rng, baseline_lib, sweep=True)
-        emit("timing", card=card, **timing)
-        summary[res] = timing
-        torch.cuda.empty_cache()
+        for kernel in ("quadratic", "cubic"):
+            timing = time_particle_kernels(res, rng, baseline_lib, sweep=True, kernel=kernel)
+            emit("timing", card=card, **timing)
+            summary[res if kernel == "quadratic" else (kernel, res)] = timing
+            torch.cuda.empty_cache()
+        # the linearize of the two models it gained (quadratic stencil)
+        for model_name in NEW_MODELS:
+            timing = time_particle_kernels(res, rng, None, sweep=False, model_name=model_name,
+                                           names=("fused_linearize",))
+            emit("timing", card=card, **timing)
+            summary[model_name, res] = timing
     for dtype in (torch.float32, torch.float64):
         mats = mg_hierarchy(dtype, rng)
         rows = check_spmv(mats, dtype, rng, timing=dtype == torch.float32)
@@ -829,10 +939,12 @@ def main(argv=None):
             summary["spmv"] = rows[0]
         del mats
     emit("bounds", copy_bytes_per_s=copy_bytes_per_s, **{
-        f"{name}_{res}": dict(bound_ms=summary[res][name]["bound_ms"],
-                              bound_by=summary[res][name]["bound_by"],
-                              copy_bound_ms=summary[res][name]["bytes"] / copy_bytes_per_s * 1e3)
-        for res in (64, 128) for name in ("fused_apply", "fused_linearize")})
+        f"{name}_{res}{suffix}": dict(bound_ms=summary[key][name]["bound_ms"],
+                                      bound_by=summary[key][name]["bound_by"],
+                                      copy_bound_ms=summary[key][name]["bytes"]
+                                      / copy_bytes_per_s * 1e3)
+        for res in (64, 128) for suffix, key in (("", res), ("_cubic", ("cubic", res)))
+        for name in ("fused_apply", "fused_linearize")})
     torch.cuda.empty_cache()
 
     lap("kernels")
@@ -973,6 +1085,21 @@ def main(argv=None):
         if name == "snowball_drop_2d":
             assert rows[-1]["Jp_range"][0] < 1.0, rows
         del sims
+    # the cubic stencil, Neo-Hookean and L-BFGS (whose iteration count, the
+    # "newton" and "cg" pairs alike, may differ by 2)
+    for label, overrides, model_name in (("cubic", {"transfer_kernel": "cubic"}, None),
+                                         ("neo_hookean", {}, "neo_hookean"),
+                                         ("lbfgs", {"solver.nonlinear": "lbfgs"}, None)):
+        n, rows = card_against_cpu(overrides, model_name)
+        iter_diff = 2 if label == "lbfgs" else 0
+        emit("cpu", case=label, scene="twisting_bar_3d", particles=n, steps=rows,
+             limits=dict(newton_diff=iter_diff, cg_diff=2, x_diff_over_dx=X_TOL))
+        for r in rows:
+            assert all(r["converged"]), rows
+            assert abs(r["newton"][0] - r["newton"][1]) <= iter_diff, rows
+            assert abs(r["cg"][0] - r["cg"][1]) <= 2, rows
+            assert r["x_diff_over_dx"] <= X_TOL, rows
+        assert sum(r["newton"][1] for r in rows) > 0, rows
     torch.cuda.empty_cache()
 
     lap("cpu")
@@ -1109,23 +1236,167 @@ def main(argv=None):
         del sim
     del scene, start
     lap("solver_options")
+
+    # ---- 11 cubic transfers: the 64^3 bar under block-Jacobi, then the
+    # default (matrix-free) multigrid, whose levels' stencils are cubic too
+    scene = build_scene("twisting_bar_3d", device="cuda", res=64, ppc=8)
+    cfg = config_from_overrides(scene["cfg"], {"transfer_kernel": "cubic"})
+    sim = Simulation(cfg, scene["state"], scene["model"], scene["colliders"])
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fl.launches = sp.launches = 0
+    with WindowStats() as ws:
+        stats, seconds = run_steps(sim, 12, DT)
+    cubic_launches = {"fused_apply": fa.launches, "fused_linearize": fl.launches,
+                      "bsr_spmv": sp.launches}
+    emit("windows", path="cubic, 64^3 block-Jacobi",
+         launch_config=fa.launch_config(3, 4, 4), **ws.read())
+    row = step_record(sim, stats, seconds)
+    want = expected_launches(row["newton"], row["cg"])
+    row.update(preconditioner="block_jacobi", launches=cubic_launches, launches_expected=want,
+               max_velocity=[s.max_velocity for s in stats])
+    emit("cubic", card=card, scene="twisting_bar_3d", res=64, **row)
+    assert bool(torch.isfinite(sim.state.x).all() and torch.isfinite(sim.state.Ff).all()), row
+    assert all(s.converged for s in stats) and sim.retry_count == 0, row
+    assert all(k > 0 for k in row["newton"][6:]), row
+    assert cubic_launches == want and want["fused_apply"] > 0, row
+    vmax = max(s.max_velocity for s in stats)
+    assert 1.0 < vmax < 3.0, vmax
+    # the multigrid continues from the twisted state the 12 steps left
+    cfg_mg = config_from_overrides(cfg, {"solver.preconditioner": "multigrid"})
+    start, t_start = sim.state, sim.t
+    sim = Simulation(cfg_mg, start, scene["model"], scene["colliders"])
+    sim.t = t_start
+    torch.cuda.reset_peak_memory_stats()
+    with Attempts() as att:
+        (stats, seconds), run_launches = counted(lambda: run_steps(sim, 3, DT))
+    row = step_record(sim, stats, seconds)
+    newton_all = [a.newton_iters for _, a in att.stats]
+    cg_all = [a.cg_iters for _, a in att.stats]
+    per_build, per_vcycle, want_apply = mf_mg_apply_launches(cfg_mg.solver.multigrid, newton_all,
+                                                             cg_all)
+    want = {"fused_apply": want_apply, "fused_linearize": sum(k + 1 for k in newton_all),
+            "bsr_spmv": 0}
+    row.update(preconditioner="default multigrid (matrix-free levels)", launches=run_launches,
+               launches_expected=want, apply_per_build=per_build, apply_per_vcycle=per_vcycle,
+               retried_attempts=att.retried(stats))
+    emit("cubic", card=card, scene="twisting_bar_3d", res=64, **row)
+    assert bool(torch.isfinite(sim.state.x).all()), row
+    assert all(math.isfinite(s.cn_residual) for s in stats), row
+    assert sum(newton_all) > 0 and run_launches == want, row
+    del scene, sim, start
+    torch.cuda.empty_cache()
+    lap("cubic")
+
+    # ---- 12 the two models the linearize kernel gained: the 64^3 bar, 3
+    # steps from stress_state each
+    from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
+
+    scene = build_scene("twisting_bar_3d", device="cuda", res=64, ppc=8)
+    start = stress_state(scene["state"], scene["cfg"])
+    for name in NEW_MODELS:
+        sim = Simulation(scene["cfg"], start, MODEL_REGISTRY[name], scene["colliders"])
+        torch.cuda.reset_peak_memory_stats()
+        (stats, seconds), run_launches = counted(lambda: run_steps(sim, 3, DT))
+        row = step_record(sim, stats, seconds)
+        want = expected_launches(row["newton"], row["cg"])
+        row.update(model=name, launches=run_launches, launches_expected=want)
+        emit("models", card=card, scene="twisting_bar_3d", res=64, **row)
+        assert_steps_ok(sim, stats, row)
+        assert run_launches == want, row
+        del sim
+    del scene, start
+    lap("models")
+
+    # ---- 13 baselines: the explicit integrator (tests/test_baselines.py's
+    # block drop at E 1e4 and dt 5e-4, from stress_state so that the
+    # elastic forces act), then L-BFGS on the 32^3 bar from stress_state
+    scene = build_scene("block_drop_2d", device="cuda", res=32, E=1e4)
+    cfg = config_from_overrides(scene["cfg"], {"solver.integrator": "explicit"})
+    sim = Simulation(cfg, stress_state(scene["state"], scene["cfg"]), scene["model"],
+                     scene["colliders"])
+    (stats, seconds), run_launches = counted(lambda: run_steps(sim, 200, 5e-4))
+    eye = torch.eye(2, device="cuda").reshape(1, 4)
+    row = dict(integrator="explicit", scene="block_drop_2d", res=32, steps=len(stats),
+               seconds=seconds, steps_per_s=len(stats) / seconds, launches=run_launches,
+               min_y=float(sim.state.x[:, 1].min()), floor_y=0.15, dx=cfg.dx,
+               max_F_minus_I=float((sim.state.Ff - eye).abs().max()))
+    emit("baselines", card=card, **row)
+    assert bool(torch.isfinite(sim.state.x).all() and torch.isfinite(sim.state.Ff).all()), row
+    assert row["min_y"] > 0.15 - 2 * cfg.dx and row["max_F_minus_I"] > 1e-3, row
+    assert all(s.newton_iters == 0 and s.converged for s in stats), row
+    assert all(v == 0 for v in run_launches.values()), row
+    scene = build_scene("twisting_bar_3d", device="cuda", res=32, ppc=4)
+    cfg = config_from_overrides(scene["cfg"], {"solver.nonlinear": "lbfgs"})
+    sim = Simulation(cfg, stress_state(scene["state"], scene["cfg"]), scene["model"],
+                     scene["colliders"])
+    (stats, seconds), run_launches = counted(lambda: run_steps(sim, 3, DT))
+    row = step_record(sim, stats, seconds)
+    # one gradient (the linearize's residual) at v0 and one per iteration
+    want = {"fused_apply": 0, "fused_linearize": sum(k + 1 for k in row["newton"]),
+            "bsr_spmv": 0}
+    row.update(nonlinear="lbfgs", scene="twisting_bar_3d", res=32, launches=run_launches,
+               launches_expected=want, backtracks=[s.ls_backtracks for s in stats])
+    emit("baselines", card=card, **row)
+    assert_steps_ok(sim, stats, row)
+    assert run_launches == want, row
+    del scene, sim
+    lap("baselines")
+
+    # ---- 14 io: the CLI on the card, 2 frames of block_drop_2d in bgeo, and
+    # the same run resumed from its first checkpoint
+    from hot_tpu_torch import cli
+    from hot_tpu_torch.io.checkpoint import load_checkpoint
+    from hot_tpu_torch.native import read_bgeo
+
+    io_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_io"
+    shutil.rmtree(io_dir, ignore_errors=True)
+    cli_args = ["--scene", "block_drop_2d", "--device", "cuda", "--frames", "2",
+                "--frame-format", "bgeo", "--quiet"]
+    t0 = time.perf_counter()
+    assert cli.main(cli_args + ["-o", str(io_dir / "full")]) == 0
+    assert cli.main(cli_args + ["-o", str(io_dir / "resumed"), "--resume",
+                                str(io_dir / "full" / "ckpt_00000.npz")]) == 0
+    cli_seconds = time.perf_counter() - t0
+    x_full, v_full = read_bgeo(str(io_dir / "full" / "frame_00001.bgeo"))
+    x_resumed, _ = read_bgeo(str(io_dir / "resumed" / "frame_00001.bgeo"))
+    state, t_end, steps = load_checkpoint(str(io_dir / "full" / "ckpt_00001.npz"))
+    dx = json.loads((io_dir / "full" / "config.json").read_text())["dx"]
+    row = dict(scene="block_drop_2d", frames=2, steps=steps, t=t_end, seconds=cli_seconds,
+               particles=state.n, resume_x_diff_over_dx=float(np.abs(x_full - x_resumed).max())
+               / dx, limit=RESUME_TOL,
+               bgeo_equals_checkpoint_x=bool(np.array_equal(x_full[:, :2], state.x.numpy())),
+               files=sorted(p.name for p in (io_dir / "full").iterdir()))
+    emit("io", card=card, **row)
+    assert not (io_dir / "resumed" / "frame_00000.bgeo").exists(), row
+    assert state.x.dtype == torch.float32 and row["bgeo_equals_checkpoint_x"], row
+    assert np.isfinite(x_full).all() and v_full is not None and steps > 0, row
+    assert row["resume_x_diff_over_dx"] <= RESUME_TOL, row
+    lap("io")
     emit("runtime", seconds=laps, total_seconds=sum(laps.values()))
 
-    errs, t64 = summary["errs"], summary[64]
     spmv = summary["spmv"]
 
-    def particle_row(name, err):
-        row = t64[name]
-        return {"name": name, "route": "cuda", "source": f"hot_tpu_torch/csrc/{name}.cu",
+    def particle_row(name, kernel):
+        """The kernel's row: launches on its main path (block-Jacobi at 64^3,
+        quadratic or cubic), its error and times at 64^3 (fp32)."""
+        quadratic = kernel == "quadratic"
+        row = summary[64] if quadratic else summary[kernel, 64]
+        err = summary["errs" if quadratic else "errs_cubic"][
+            "lin_f" if name == "fused_linearize" else "apply_df"][0]
+        return {"name": name if quadratic else f"{name}_{kernel}", "route": "cuda",
+                "source": f"hot_tpu_torch/csrc/{name}.cu",
                 "replaces": {"fused_linearize": "hot_tpu/ops/pallas_linearize.py:374",
                              "fused_apply": "hot_tpu/ops/pallas_apply.py:143"}[name],
-                "launches": launches[name], "max_abs_err": err, "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": None}
+                "launches": (launches if quadratic else cubic_launches)[name],
+                "max_abs_err": err, "ms": row[name]["ms"], "plain_ms": row[name]["plain_ms"],
+                "bound_ms": row[name]["bound_ms"], "bound_by": row[name]["bound_by"],
+                "library_ms": None}
 
     print(json.dumps({"kernels": [
-        particle_row("fused_linearize", errs["lin_f"][0]),
-        particle_row("fused_apply", errs["apply_df"][0]),
+        particle_row("fused_linearize", "quadratic"),
+        particle_row("fused_apply", "quadratic"),
+        particle_row("fused_linearize", "cubic"),
+        particle_row("fused_apply", "cubic"),
         {"name": "bsr_spmv", "route": "cuda", "source": "hot_tpu_torch/csrc/bsr_spmv.cu",
          "replaces": "hot_tpu/ops/bsr_tiled.py:387",
          "launches": mg_counts["bsr_spmv"], "max_abs_err": spmv["max_abs_err"],

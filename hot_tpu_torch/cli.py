@@ -1,12 +1,17 @@
 """Command-line driver: scene, solver overrides, frame loop, output.
 
     python -m hot_tpu_torch --scene twisting_bar_3d --frames 24 -o runs/twist \
-        --scene-arg res=64 --scene-arg ppc=8 --set solver.cn_eps=1e-3
+        --scene-arg res=64 --scene-arg ppc=8 --set solver.cn_eps=1e-3 \
+        --set transfer_kernel=cubic --model neo_hookean
 
 Runs on the GPU (``--device cuda``, the default); it refuses to start when
 no GPU is present unless ``--device cpu`` is given. Writes config.json,
-metrics.jsonl (one record per step), timers.txt and one .npz per frame
-(x, v) into the run directory.
+metrics.jsonl (one record per step), timers.txt, one render frame per frame
+(``--frame-format``: bgeo, the default, ply or npz; frame_NNNNN.<format>)
+and a checkpoint every ``--checkpoint-every`` frames (ckpt_NNNNN.npz) into
+the run directory. ``--resume ckpt_NNNNN.npz`` continues a run from a
+checkpoint: it starts at the frame after the checkpoint's time and repeats
+the uninterrupted run's frames (bit for bit on the CPU).
 """
 
 from __future__ import annotations
@@ -44,7 +49,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config override, e.g. solver.cn_eps=1e-3 (repeatable)")
     p.add_argument("--scene-arg", action="append", default=[], metavar="KEY=VALUE",
                    help="scene builder argument, e.g. res=64 (repeatable)")
+    p.add_argument("--resume", default=None, help="checkpoint .npz to resume from")
+    p.add_argument("--frame-format", default="bgeo", choices=["bgeo", "ply", "npz"],
+                   help="render frame format (bgeo: partio's classic Houdini format)")
+    p.add_argument("--checkpoint-every", type=int, default=1, metavar="FRAMES",
+                   help="write a checkpoint every N frames (0 = never)")
     p.add_argument("--max-steps", type=int, default=0, help="stop after N steps (0 = off)")
+    p.add_argument("--model", default=None,
+                   choices=["fixed_corotated", "stvk_hencky", "neo_hookean", "linear_corotated"],
+                   help="constitutive model in place of the scene's")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--f64", action="store_true", help="simulate in float64")
     p.add_argument("--quiet", action="store_true")
@@ -54,9 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
-    import numpy as np
     import torch
 
+    from hot_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint, save_frame
+    from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
     from hot_tpu_torch.scenes import SCENES, build_scene
     from hot_tpu_torch.sim import Simulation
     from hot_tpu_torch.utils.config import config_from_overrides
@@ -83,17 +97,27 @@ def main(argv=None):
     with open(os.path.join(out_dir, "config.json"), "w") as fh:
         fh.write(cfg.to_json())
     metrics = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), echo=not args.quiet)
-    sim = Simulation(cfg, scene["state"], scene["model"], scene["colliders"],
+    model = MODEL_REGISTRY[args.model] if args.model else scene["model"]
+    sim = Simulation(cfg, scene["state"], model, scene["colliders"],
                      plasticity=scene["plasticity"], metrics=metrics)
+    start_frame = 0
+    if args.resume:
+        sim.state, sim.t, sim.step_count = load_checkpoint(args.resume, device=device,
+                                                           dtype=scene["state"].x.dtype)
+        start_frame = int(sim.t / cfg.frame_dt + 0.5)
+        print(f"resumed from {args.resume} at t={sim.t:.4f} (frame {start_frame})")
     print(f"scene={args.scene} particles={sim.state.n} grid={cfg.grid_res} "
-          f"device={device} precond={cfg.solver.preconditioner}", flush=True)
+          f"device={device} model={model.name} precond={cfg.solver.preconditioner}", flush=True)
 
     try:
-        for frame in range(args.frames):
+        for frame in range(start_frame, args.frames):
             t0 = time.perf_counter()
             sim.advance_frame(max_steps=args.max_steps)
-            np.savez_compressed(os.path.join(out_dir, f"frame_{frame:05d}.npz"),
-                                x=sim.state.x.cpu().numpy(), v=sim.state.v.cpu().numpy())
+            save_frame(os.path.join(out_dir, f"frame_{frame:05d}.{args.frame_format}"),
+                       sim.state)
+            if args.checkpoint_every and (frame + 1) % args.checkpoint_every == 0:
+                save_checkpoint(os.path.join(out_dir, f"ckpt_{frame:05d}.npz"), sim.state,
+                                sim.t, sim.step_count)
             if not args.quiet:
                 print(f"frame {frame}: t={sim.t:.4f} steps={sim.step_count} "
                       f"({time.perf_counter() - t0:.2f}s)", flush=True)

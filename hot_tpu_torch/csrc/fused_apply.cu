@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel hot_tpu/ops/pallas_apply.py:fused_contrib_cl. One
 // thread per particle keeps the whole chain in registers:
-//   the quadratic stencil from x (particle_window.cuh)
-//   gather w at the 3^d stencil nodes
+//   the quadratic or cubic stencil from x (particle_window.cuh; SW = 3 or 4
+//   nodes per axis, a template parameter)
+//   gather w at the SW^d stencil nodes
 //   grad_w = sum_k w_k gw_k^T;  dF = dt grad_w F;  W = U^T dF V
 //   dP^ = diag(A diag(W)) plus the b+/- pair blocks;  dP = U dP^ V^T
 //   contrib_k = -V0 (dP F^T) gw_k, added into df (n_nodes, d).
@@ -18,7 +19,7 @@
 // particle read), and the gather and scatter go through the block's
 // shared-memory node window (particle_window.cuh): a block of lattice-ordered
 // particles reads w with coalesced rows and issues one global atomic per
-// non-zero node value of its box instead of 81 per particle.
+// non-zero node value of its box instead of 81 (cubic: 192) per particle.
 #include <cuda_runtime.h>
 
 #include "particle_window.cuh"
@@ -26,7 +27,7 @@
 
 namespace {
 
-template <typename T, int D>
+template <typename T, int D, int SW>
 __global__ void __launch_bounds__(hot::kMaxThreads)
 fused_apply_kernel(const T* __restrict__ w, const T* __restrict__ x, T dx, hot::Grid<D> grid,
                    const T* __restrict__ Fm, const T* __restrict__ Um,
@@ -38,9 +39,9 @@ fused_apply_kernel(const T* __restrict__ w, const T* __restrict__ x, T dx, hot::
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2 * D];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  hot::window_frame<T, D>(w, x, dx, grid, df, n, window_nodes, stats, smem, s_box,
-                          [&](const T* src, const hot::Stencil<T, D>& s,
-                              const int off[D][3], T M[D][D]) {
+  hot::window_frame<T, D, SW>(w, x, dx, grid, df, n, window_nodes, stats, smem, s_box,
+                             [&](const T* src, const hot::Stencil<T, D, SW>& s,
+                                 const int off[D][SW], T M[D][D]) {
     T grad[D][D];
     hot::gather_grad(src, s, off, grad);
     T F[D][D], U[D][D], V[D][D];
@@ -130,39 +131,54 @@ fused_apply_kernel(const T* __restrict__ w, const T* __restrict__ x, T dx, hot::
   });
 }
 
-template <typename T, int D>
+template <typename T, int D, int SW>
 int launch(const void* w, const void* x, double dx, const int* res, const void* F,
            const void* U, const void* V, const void* A, const void* bp, const void* bm,
            const void* V0, double dt, void* df, long long n, int threads, int window_nodes,
            unsigned long long* stats, cudaStream_t stream) {
   hot::Grid<D> grid;
   for (int a = 0; a < D; ++a) grid.res[a] = res[a];
-  const size_t smem = window_nodes > 0 ? hot::window_bytes<T, D>(window_nodes, threads) : 0;
+  const size_t smem = window_nodes > 0 ? hot::window_bytes<T, D, SW>(window_nodes, threads) : 0;
   // the static shared memory counts against the default 48 KB too, so the
   // limit is raised for any window
   if (smem > 0) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        fused_apply_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_apply_kernel<T, D, SW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  fused_apply_kernel<T, D><<<blocks, threads, smem, stream>>>(
+  fused_apply_kernel<T, D, SW><<<blocks, threads, smem, stream>>>(
       (const T*)w, (const T*)x, (T)dx, grid, (const T*)F, (const T*)U, (const T*)V, (const T*)A,
       (const T*)bp, (const T*)bm, (const T*)V0, (T)dt, (T*)df, n, window_nodes, stats);
   return 0;
 }
 
+template <int SW>
+int dispatch(int dtype, int dim, const void* w, const void* x, double dx, const int* res,
+             const void* F, const void* U, const void* V, const void* A, const void* bp,
+             const void* bm, const void* V0, double dt, void* df, long long n, int threads,
+             int window_nodes, unsigned long long* st, cudaStream_t s) {
+  if (dtype == 0 && dim == 3) return launch<float, 3, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+  if (dtype == 0 && dim == 2) return launch<float, 2, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 3) return launch<double, 3, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 2) return launch<double, 2, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64; res: dim grid sizes; threads: a multiple
-// of 32 up to 256; window_nodes: the largest node box a block takes through
-// shared memory (0: every block through global memory); stats: NULL or
-// hot::kStatCount uint64 counters. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unsupported dtype, dim or block).
-extern "C" int hot_fused_apply(int dtype, int dim, const void* w, const void* x, double dx,
-                               const int* res, const void* F, const void* U, const void* V,
-                               const void* A, const void* bp, const void* bm, const void* V0,
-                               double dt, void* df, long long n, int threads,
+// dtype: 0 = float32, 1 = float64; width: stencil nodes per axis, 3
+// (quadratic) or 4 (cubic); res: dim grid sizes; threads: a multiple of 32
+// up to 256; window_nodes: the largest node box a block takes through shared
+// memory (0: every block through global memory); stats: NULL or
+// hot::kStatCount uint64 counters. Returns the error of raising the block's
+// shared-memory limit if that fails, else cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unsupported dtype, dim, width or
+// block).
+extern "C" int hot_fused_apply(int dtype, int dim, int width, const void* w, const void* x,
+                               double dx, const int* res, const void* F, const void* U,
+                               const void* V, const void* A, const void* bp, const void* bm,
+                               const void* V0, double dt, void* df, long long n, int threads,
                                int window_nodes, void* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   auto* st = (unsigned long long*)stats;
@@ -171,11 +187,12 @@ extern "C" int hot_fused_apply(int dtype, int dim, const void* w, const void* x,
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     int rc;
-    if (dtype == 0 && dim == 3) rc = launch<float, 3>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-    else if (dtype == 0 && dim == 2) rc = launch<float, 2>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-    else if (dtype == 1 && dim == 3) rc = launch<double, 3>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-    else if (dtype == 1 && dim == 2) rc = launch<double, 2>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-    else return (int)cudaErrorInvalidValue;
+    if (width == 3)
+      rc = dispatch<3>(dtype, dim, w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+    else if (width == 4)
+      rc = dispatch<4>(dtype, dim, w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+    else
+      rc = (int)cudaErrorInvalidValue;
     if (rc != 0) return rc;
   }
   return (int)cudaGetLastError();

@@ -3,11 +3,13 @@
 //
 // Replaces the TPU kernel hot_tpu/ops/pallas_linearize.py:fused_linearize.
 // One thread per particle:
-//   the quadratic stencil from x (particle_window.cuh)
-//   gather v at the 3^d stencil nodes; grad_v; F_new = (I + dt grad_v) F
+//   the quadratic or cubic stencil from x (particle_window.cuh; SW = 3 or 4
+//   nodes per axis, a template parameter)
+//   gather v at the SW^d stencil nodes; grad_v; F_new = (I + dt grad_v) F
 //   SVD of F_new (small_mat.cuh: Jacobi eigh of F^T F, sort with parity,
 //   Givens QR, sign fix)
-//   model derivatives g, A, the stable b-; b+ = (g_i + g_j)/(s_i + s_j)
+//   model derivatives g, A, the stable b- (small_mat.cuh: fixed corotated,
+//   StVK-Hencky, Neo-Hookean, linear corotated); b+ = (g_i + g_j)/(s_i + s_j)
 //   SPD clamp: eigh of sym(A) with eigenvalues clamped at 0; b+/- >= 0
 //   P = U diag(g) V^T; contrib_k = -V0 (P F^T) gw_k added into f (n_nodes, d)
 //   U, V, A, b+, b- written SoA ((d*d, n), (n_pairs, n)): the exact layout
@@ -33,7 +35,7 @@ namespace {
 
 constexpr int kSweeps = 6;
 
-template <typename T, int D, typename Model>
+template <typename T, int D, int SW, typename Model>
 __global__ void __launch_bounds__(hot::kMaxThreads)
 fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
                        hot::Grid<D> grid, const T* __restrict__ Fm,
@@ -48,9 +50,9 @@ fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2 * D];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  hot::window_frame<T, D>(v, x, dx, grid, f, n, window_nodes, stats, smem, s_box,
-                          [&](const T* src, const hot::Stencil<T, D>& s,
-                              const int off[D][3], T M[D][D]) {
+  hot::window_frame<T, D, SW>(v, x, dx, grid, f, n, window_nodes, stats, smem, s_box,
+                             [&](const T* src, const hot::Stencil<T, D, SW>& s,
+                                 const int off[D][SW], T M[D][D]) {
     T grad[D][D];
     hot::gather_grad(src, s, off, grad);
     T F[D][D], Fn[D][D];
@@ -148,50 +150,63 @@ fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
   });
 }
 
-template <typename T, int D, typename Model>
+template <typename T, int D, int SW, typename Model>
 int launch(const void* v, const void* x, double dx, const int* res, const void* F,
            const void* mu, const void* lam, const void* V0, double dt, int project, void* f,
            void* U, void* V, void* A, void* bp, void* bm, long long n, int threads,
            int window_nodes, unsigned long long* stats, cudaStream_t stream) {
   hot::Grid<D> grid;
   for (int a = 0; a < D; ++a) grid.res[a] = res[a];
-  const size_t smem = window_nodes > 0 ? hot::window_bytes<T, D>(window_nodes, threads) : 0;
+  const size_t smem = window_nodes > 0 ? hot::window_bytes<T, D, SW>(window_nodes, threads) : 0;
   // the static shared memory counts against the default 48 KB too, so the
   // limit is raised for any window
   if (smem > 0) {
-    const cudaError_t rc = cudaFuncSetAttribute(fused_linearize_kernel<T, D, Model>,
+    const cudaError_t rc = cudaFuncSetAttribute(fused_linearize_kernel<T, D, SW, Model>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  fused_linearize_kernel<T, D, Model><<<blocks, threads, smem, stream>>>(
+  fused_linearize_kernel<T, D, SW, Model><<<blocks, threads, smem, stream>>>(
       (const T*)v, (const T*)x, (T)dx, grid, (const T*)F, (const T*)mu, (const T*)lam,
       (const T*)V0, (T)dt, project, (T*)f, (T*)U, (T*)V, (T*)A, (T*)bp, (T*)bm, n,
       window_nodes, stats);
   return 0;
 }
 
-template <typename Model>
+template <int SW, typename Model>
 int dispatch(int dtype, int dim, const void* v, const void* x, double dx, const int* res,
              const void* F, const void* mu, const void* lam, const void* V0, double dt,
              int project, void* f, void* U, void* V, void* A, void* bp, void* bm,
              long long n, int threads, int window_nodes, unsigned long long* st,
              cudaStream_t s) {
-  if (dtype == 0 && dim == 3) return launch<float, 3, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 0 && dim == 2) return launch<float, 2, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 3) return launch<double, 3, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 2) return launch<double, 2, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (dtype == 0 && dim == 3) return launch<float, 3, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (dtype == 0 && dim == 2) return launch<float, 2, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 3) return launch<double, 3, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 2) return launch<double, 2, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename Model>
+int dispatch_width(int width, int dtype, int dim, const void* v, const void* x, double dx,
+                   const int* res, const void* F, const void* mu, const void* lam,
+                   const void* V0, double dt, int project, void* f, void* U, void* V, void* A,
+                   void* bp, void* bm, long long n, int threads, int window_nodes,
+                   unsigned long long* st, cudaStream_t s) {
+  if (width == 3) return dispatch<3, Model>(dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (width == 4) return dispatch<4, Model>(dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// model: 0 = fixed_corotated, 1 = stvk_hencky; dtype: 0 = float32,
-// 1 = float64; res, threads, window_nodes and stats as for hot_fused_apply.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported model, dtype, dim or block).
-extern "C" int hot_fused_linearize(int model, int dtype, int dim, const void* v,
+// model: 0 = fixed_corotated, 1 = stvk_hencky, 2 = neo_hookean,
+// 3 = linear_corotated; dtype: 0 = float32, 1 = float64; width, res,
+// threads, window_nodes and stats as for hot_fused_apply. Returns the error
+// of raising the block's shared-memory limit if that fails, else
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported model, dtype, dim, width or block).
+extern "C" int hot_fused_linearize(int model, int dtype, int dim, int width, const void* v,
                                    const void* x, double dx, const int* res, const void* F,
                                    const void* mu, const void* lam, const void* V0,
                                    double dt, int project, void* f, void* U, void* V,
@@ -205,9 +220,13 @@ extern "C" int hot_fused_linearize(int model, int dtype, int dim, const void* v,
   if (n > 0) {
     int rc;
     if (model == 0)
-      rc = dispatch<hot::FixedCorotated>(dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::FixedCorotated>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
     else if (model == 1)
-      rc = dispatch<hot::StvkHencky>(dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::StvkHencky>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+    else if (model == 2)
+      rc = dispatch_width<hot::NeoHookean>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+    else if (model == 3)
+      rc = dispatch_width<hot::LinearCorotated>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
     else
       rc = (int)cudaErrorInvalidValue;
     if (rc != 0) return rc;

@@ -1,24 +1,27 @@
-// The quadratic B-spline stencil of a particle, recomputed from its position,
-// and a thread block's shared-memory window over the grid nodes that its
-// particles touch. Shared by fused_apply.cu and fused_linearize.cu.
+// The B-spline stencil of a particle, recomputed from its position, and a
+// thread block's shared-memory window over the grid nodes that its particles
+// touch. Shared by fused_apply.cu and fused_linearize.cu.
 //
-// Stencil, as hot_tpu_torch/ops/transfer.py:particle_stencil computes it: per
-// axis base = floor(x/dx - 0.5) and u = x/dx - base, the three weights and
-// weight derivatives of ops/bspline.py, node coordinates base + {0, 1, 2}
-// clamped to [0, res - 1] (a boundary particle repeats a node, and its
-// contributions to that node add up, as index_add_ adds them). The weight
-// gradient of node (i, j, k) has the association ((dw_x w_y) w_z) of
-// bspline.tensor_weights. Node ids are row-major, the last axis contiguous.
+// Stencil, as hot_tpu_torch/ops/transfer.py:particle_stencil computes it, W
+// nodes per axis (W = 3 quadratic, W = 4 cubic): per axis the base node
+// (floor(x/dx - 0.5) quadratic, floor(x/dx) - 1 cubic) and u = x/dx - base,
+// the W weights and weight derivatives of ops/bspline.py, node coordinates
+// base + {0 .. W-1} clamped to [0, res - 1] (a boundary particle repeats a
+// node, and its contributions to that node add up, as index_add_ adds them).
+// The weight gradient of node (i, j, k) has the association ((dw_x w_y) w_z)
+// of bspline.tensor_weights. Node ids are row-major, the last axis
+// contiguous. The width is a template parameter: the quadratic and cubic
+// kernels are separate instances.
 //
 // Window: a block takes consecutive particles. Seeded in lattice order they
 // lie in a few cells, so the block reduces its particles' bases to a node box
-// (min base to max base + 2 per axis) and loads the grid vector over the box
+// (min base to max base + W - 1 per axis) and loads the grid vector over the box
 // into shared memory (one warp per row along the contiguous last axis); each
 // particle gathers from there. The scatter is a counting sort by node, with
 // no shared-memory float atomics (on Hopper those are compare-and-swap
 // loops, and 81 of them one after another per 3D particle left the kernel
 // waiting on shared-memory latency):
-//   1. each particle counts itself at its 3^d nodes with integer atomics
+//   1. each particle counts itself at its W^d nodes with integer atomics
 //      (native on Hopper);
 //   2. an exclusive scan of the counts gives each node a contiguous run of
 //      slots, and a copy of the run starts serves as cursors;
@@ -30,7 +33,8 @@
 // A particle whose stencil is clamped at the grid's edge, and every particle
 // of a block whose box holds more than `window_nodes` nodes (a scrambled or
 // far-deformed order), gathers from and scatters into global memory directly
-// (81 atomics per 3D particle). The branch is uniform over a block except
+// (W^d d atomics per particle: 81 quadratic and 192 cubic in 3D). The branch
+// is uniform over a block except
 // for the clamped particles.
 #pragma once
 
@@ -61,10 +65,20 @@ struct Grid {
   int res[D];
 };
 
-template <typename T, int D>
+template <int D, int W>
+struct StencilSize {
+  static constexpr int value = W * StencilSize<D - 1, W>::value;
+};
+template <int W>
+struct StencilSize<0, W> {
+  static constexpr int value = 1;
+};
+
+template <typename T, int D, int W>
 struct Stencil {
-  T w[D][3], dw[D][3];
-  int c[D][3];  // clamped node coordinate per axis and offset
+  static constexpr int S = StencilSize<D, W>::value;  // nodes
+  T w[D][W], dw[D][W];
+  int c[D][W];  // clamped node coordinate per axis and offset
 };
 
 template <int D>
@@ -77,13 +91,13 @@ struct Window {
 // Shared memory a launch reserves, for a box of at most window_nodes nodes
 // and a block of `threads` particles:
 //   T   win[window_nodes * D]    the grid vector over the box
-//   T   slots[threads * 3^D * D] the contributions, sorted by node
+//   T   slots[threads * W^D * D] the contributions, sorted by node
 //   int start[window_nodes + 1]  counts per node, then each node's first slot
 //   int cursor[window_nodes + 1] each node's next free slot
 //   int scan[threads / 32]       the scan's warp totals
-template <typename T, int D>
+template <typename T, int D, int W>
 size_t window_bytes(int window_nodes, int threads) {
-  constexpr int S = D == 2 ? 9 : 27;
+  constexpr int S = StencilSize<D, W>::value;
   return ((size_t)window_nodes * D + (size_t)threads * S * D) * sizeof(T) +
          (2 * ((size_t)window_nodes + 1) + threads / kWarp) * sizeof(int);
 }
@@ -97,9 +111,9 @@ struct Shared {
   int* scan;
 };
 
-template <typename T, int D>
+template <typename T, int D, int W>
 __device__ __forceinline__ Shared<T, D> carve(unsigned char* smem, int window_nodes) {
-  constexpr int S = D == 2 ? 9 : 27;
+  constexpr int S = StencilSize<D, W>::value;
   Shared<T, D> sh;
   sh.win = reinterpret_cast<T*>(smem);
   sh.slots = sh.win + (size_t)window_nodes * D;
@@ -109,41 +123,75 @@ __device__ __forceinline__ Shared<T, D> carve(unsigned char* smem, int window_no
   return sh;
 }
 
-template <typename T, int D>
+// The cubic B-spline's outer (1 <= |t| < 2) and inner (|t| < 1) pieces of
+// N(t) and dN/dt at a = |t|, as ops/bspline.py:cubic_kernel_1d has them.
+template <typename T>
+__device__ __forceinline__ T cubic_outer(T a) {
+  return -(a * a * a) / T(6) + a * a - T(2) * a + T(4) / T(3);
+}
+template <typename T>
+__device__ __forceinline__ T cubic_inner(T a) {
+  return T(0.5) * (a * a * a) - a * a + T(2) / T(3);
+}
+template <typename T>
+__device__ __forceinline__ T cubic_outer_grad(T a) {
+  return T(-0.5) * a * a + T(2) * a - T(2);
+}
+
+template <typename T, int D, int W>
 __device__ __forceinline__ void stencil_of(const T* __restrict__ x, long long n, long long p,
-                                           T dx, const Grid<D>& g, Stencil<T, D>& s) {
+                                           T dx, const Grid<D>& g, Stencil<T, D, W>& s) {
+  static_assert(W == 3 || W == 4, "quadratic (3) or cubic (4) stencils");
 #pragma unroll
   for (int a = 0; a < D; ++a) {
     const T xs = x[a * n + p] / dx;
-    const T b = floor_(xs - T(0.5));
-    const T u = xs - b;
-    const T t0 = T(1.5) - u, t1 = u - T(1), t2 = T(1.5) + (u - T(2));
-    s.w[a][0] = T(0.5) * (t0 * t0);
-    s.w[a][1] = T(0.75) - t1 * t1;
-    s.w[a][2] = T(0.5) * (t2 * t2);
-    s.dw[a][0] = (u - T(1.5)) / dx;
-    s.dw[a][1] = (T(-2) * (u - T(1))) / dx;
-    s.dw[a][2] = ((u - T(2)) + T(1.5)) / dx;
+    T b;
+    if constexpr (W == 3) {
+      b = floor_(xs - T(0.5));
+      const T u = xs - b;
+      const T t0 = T(1.5) - u, t1 = u - T(1), t2 = T(1.5) + (u - T(2));
+      s.w[a][0] = T(0.5) * (t0 * t0);
+      s.w[a][1] = T(0.75) - t1 * t1;
+      s.w[a][2] = T(0.5) * (t2 * t2);
+      s.dw[a][0] = (u - T(1.5)) / dx;
+      s.dw[a][1] = (T(-2) * (u - T(1))) / dx;
+      s.dw[a][2] = ((u - T(2)) + T(1.5)) / dx;
+    } else {
+      // u in [1, 2): t = u, u - 1 (in [0, 1)), u - 2 (in [-1, 0)), u - 3
+      b = floor_(xs) - T(1);
+      const T u = xs - b;
+      const T a1 = u - T(1), a2 = -(u - T(2)), a3 = -(u - T(3));
+      s.w[a][0] = cubic_outer(u);
+      s.w[a][1] = cubic_inner(a1);
+      s.w[a][2] = cubic_inner(a2);
+      s.w[a][3] = cubic_outer(a3);
+      s.dw[a][0] = cubic_outer_grad(u) / dx;
+      s.dw[a][1] = (T(1.5) * a1 * a1 - T(2) * a1) / dx;
+      s.dw[a][2] = (T(-1.5) * a2 * a2 + T(2) * a2) / dx;
+      s.dw[a][3] = -cubic_outer_grad(a3) / dx;
+    }
     const int base = (int)b;
 #pragma unroll
-    for (int o = 0; o < 3; ++o) s.c[a][o] = min_(max_(base + o, 0), g.res[a] - 1);
+    for (int o = 0; o < W; ++o) s.c[a][o] = min_(max_(base + o, 0), g.res[a] - 1);
   }
 }
 
 // True if no node coordinate of the stencil was clamped.
-template <typename T, int D>
-__device__ __forceinline__ bool unclamped(const Stencil<T, D>& s) {
+template <typename T, int D, int W>
+__device__ __forceinline__ bool unclamped(const Stencil<T, D, W>& s) {
   bool ok = true;
 #pragma unroll
-  for (int a = 0; a < D; ++a) ok = ok && s.c[a][1] == s.c[a][0] + 1 && s.c[a][2] == s.c[a][0] + 2;
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int o = 1; o < W; ++o) ok = ok && s.c[a][o] == s.c[a][0] + o;
   return ok;
 }
 
 // The node box of the block's `inner` particles. Every thread of the block
 // calls this: it synchronises the block twice. A block with no inner
 // particle gets an empty box that does not fit.
-template <typename T, int D>
-__device__ __forceinline__ Window<D> block_window(const Stencil<T, D>& s, bool inner,
+template <typename T, int D, int W>
+__device__ __forceinline__ Window<D> block_window(const Stencil<T, D, W>& s, bool inner,
                                                   int window_nodes, int* s_box) {
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -156,7 +204,7 @@ __device__ __forceinline__ Window<D> block_window(const Stencil<T, D>& s, bool i
 #pragma unroll
   for (int a = 0; a < D; ++a) {
     const int lo = __reduce_min_sync(0xffffffffu, inner ? s.c[a][0] : INT_MAX);
-    const int hi = __reduce_max_sync(0xffffffffu, inner ? s.c[a][2] : INT_MIN);
+    const int hi = __reduce_max_sync(0xffffffffu, inner ? s.c[a][W - 1] : INT_MIN);
     if (threadIdx.x % kWarp == 0) {
       atomicMin(&s_box[a], lo);
       atomicMax(&s_box[D + a], hi);
@@ -178,42 +226,42 @@ __device__ __forceinline__ Window<D> block_window(const Stencil<T, D>& s, bool i
 
 // Flat node offsets per axis and stencil offset, from the box's first node
 // (in_window) or from grid node 0; a stencil node's index is their sum.
-template <typename T, int D>
-__device__ __forceinline__ void node_offsets(const Stencil<T, D>& s, const Window<D>& win,
-                                             const Grid<D>& g, bool in_window, int off[D][3]) {
+template <typename T, int D, int W>
+__device__ __forceinline__ void node_offsets(const Stencil<T, D, W>& s, const Window<D>& win,
+                                             const Grid<D>& g, bool in_window, int off[D][W]) {
   int stride = 1;
 #pragma unroll
   for (int a = D - 1; a >= 0; --a) {
 #pragma unroll
-    for (int o = 0; o < 3; ++o) off[a][o] = (s.c[a][o] - (in_window ? win.lo[a] : 0)) * stride;
+    for (int o = 0; o < W; ++o) off[a][o] = (s.c[a][o] - (in_window ? win.lo[a] : 0)) * stride;
     stride *= in_window ? win.ext[a] : g.res[a];
   }
 }
 
-// fn(node index, weight gradient g[D]) for each of the 3^D stencil nodes. In
+// fn(node index, weight gradient g[D]) for each of the W^D stencil nodes. In
 // 3D the outer loop is not unrolled: unrolled, the compiler kept the whole
 // stencil's values in flight, the registers cut the blocks an SM holds, and
 // occupancy, not instructions, set the kernels' time.
-template <typename T, int D, typename Fn>
-__device__ __forceinline__ void for_each_node(const Stencil<T, D>& s, const int off[D][3],
+template <typename T, int D, int W, typename Fn>
+__device__ __forceinline__ void for_each_node(const Stencil<T, D, W>& s, const int off[D][W],
                                               Fn&& fn) {
   if constexpr (D == 2) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < W; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int j = 0; j < W; ++j) {
         const T g[2] = {s.dw[0][i] * s.w[1][j], s.w[0][i] * s.dw[1][j]};
         fn(off[0][i] + off[1][j], g);
       }
   } else {
 #pragma unroll 1
-    for (int i = 0; i < 3; ++i)
+    for (int i = 0; i < W; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int j = 0; j < W; ++j) {
         const T gx = s.dw[0][i] * s.w[1][j], gy = s.w[0][i] * s.dw[1][j];
         const T w01 = s.w[0][i] * s.w[1][j];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < W; ++k) {
           const T g[3] = {gx * s.w[2][k], gy * s.w[2][k], w01 * s.dw[2][k]};
           fn(off[0][i] + off[1][j] + off[2][k], g);
         }
@@ -222,14 +270,14 @@ __device__ __forceinline__ void for_each_node(const Stencil<T, D>& s, const int 
 }
 
 // grad[a][b] = sum_k src[node_k][a] g_k[b]
-template <typename T, int D>
-__device__ __forceinline__ void gather_grad(const T* src, const Stencil<T, D>& s,
-                                            const int off[D][3], T grad[D][D]) {
+template <typename T, int D, int W>
+__device__ __forceinline__ void gather_grad(const T* src, const Stencil<T, D, W>& s,
+                                            const int off[D][W], T grad[D][D]) {
 #pragma unroll
   for (int a = 0; a < D; ++a)
 #pragma unroll
     for (int b = 0; b < D; ++b) grad[a][b] = T(0);
-  for_each_node<T, D>(s, off, [&](int node, const T* g) {
+  for_each_node(s, off, [&](int node, const T* g) {
 #pragma unroll
     for (int a = 0; a < D; ++a) {
       const T va = src[node * D + a];
@@ -241,10 +289,10 @@ __device__ __forceinline__ void gather_grad(const T* src, const Stencil<T, D>& s
 
 // dst[node_k][a] += sum_b M[a][b] g_k[b] by global atomicAdd (the direct
 // path).
-template <typename T, int D>
-__device__ __forceinline__ void scatter(T* dst, const Stencil<T, D>& s, const int off[D][3],
+template <typename T, int D, int W>
+__device__ __forceinline__ void scatter(T* dst, const Stencil<T, D, W>& s, const int off[D][W],
                                         const T M[D][D]) {
-  for_each_node<T, D>(s, off, [&](int node, const T* g) {
+  for_each_node(s, off, [&](int node, const T* g) {
 #pragma unroll
     for (int a = 0; a < D; ++a) {
       T acc = T(0);
@@ -286,10 +334,10 @@ __device__ __forceinline__ void load_window(const T* __restrict__ src, const Sha
 }
 
 // Step 1: the particle counted at each of its nodes.
-template <typename T, int D>
-__device__ __forceinline__ void count_nodes(const Shared<T, D>& sh, const Stencil<T, D>& s,
-                                            const int off[D][3]) {
-  for_each_node<T, D>(s, off, [&](int node, const T*) { atomicAdd(&sh.start[node], 1); });
+template <typename T, int D, int W>
+__device__ __forceinline__ void count_nodes(const Shared<T, D>& sh, const Stencil<T, D, W>& s,
+                                            const int off[D][W]) {
+  for_each_node(s, off, [&](int node, const T*) { atomicAdd(&sh.start[node], 1); });
 }
 
 // Inclusive prefix sum over the warp's lanes.
@@ -333,10 +381,10 @@ __device__ __forceinline__ void scan_counts(const Shared<T, D>& sh, int n) {
 
 // Step 3: the contributions sum_b M[a][b] g_k[b] into slots taken from the
 // nodes' cursors.
-template <typename T, int D>
-__device__ __forceinline__ void place(const Shared<T, D>& sh, const Stencil<T, D>& s,
-                                      const int off[D][3], const T M[D][D]) {
-  for_each_node<T, D>(s, off, [&](int node, const T* g) {
+template <typename T, int D, int W>
+__device__ __forceinline__ void place(const Shared<T, D>& sh, const Stencil<T, D, W>& s,
+                                      const int off[D][W], const T M[D][D]) {
+  for_each_node(s, off, [&](int node, const T* g) {
     T* slot = sh.slots + (long long)atomicAdd(&sh.cursor[node], 1) * D;
 #pragma unroll
     for (int a = 0; a < D; ++a) {
@@ -385,31 +433,31 @@ __device__ __forceinline__ void record_window(unsigned long long* stats, const W
 }
 
 // The particle kernels' common frame. With the per-particle chain
-//   chain(const T* src, const Stencil<T, D>& s, const int off[D][3], T M[D][D])
+//   chain(const T* src, const Stencil<T, D, W>& s, const int off[D][W], T M[D][D])
 // (gather from src at the offsets, compute, leave the scaled stress matrix in
 // M; run only for particles p < n) it does the stencil, the box, the window
 // load, the gather-and-chain, the sorted scatter through the window or the
 // direct one into dst, and the counters.
-template <typename T, int D, typename Chain>
+template <typename T, int D, int W, typename Chain>
 __device__ __forceinline__ void window_frame(const T* __restrict__ src, const T* __restrict__ x,
                                              T dx, const Grid<D>& grid, T* __restrict__ dst,
                                              long long n, int window_nodes,
                                              unsigned long long* __restrict__ stats,
                                              unsigned char* smem, int* s_box, Chain&& chain) {
-  constexpr int S = D == 2 ? 9 : 27;
+  constexpr int S = StencilSize<D, W>::value;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = p < n;
-  Stencil<T, D> s;
+  Stencil<T, D, W> s;
   if (valid) stencil_of(x, n, p, dx, grid, s);
   const bool inner = valid && unclamped(s);
   const Window<D> win = block_window(s, inner, window_nodes, s_box);
-  const Shared<T, D> sh = carve<T, D>(smem, window_nodes);
+  const Shared<T, D> sh = carve<T, D, W>(smem, window_nodes);
   if (win.fits) load_window(src, sh, win, grid);
   __syncthreads();
 
   const bool windowed = win.fits && inner;
   unsigned atomics = 0;
-  int off[D][3];
+  int off[D][W];
   T M[D][D];
   if (valid) {
     node_offsets(s, win, grid, windowed, off);

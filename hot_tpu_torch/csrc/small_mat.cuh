@@ -299,4 +299,58 @@ struct StvkHencky {
   }
 };
 
+// Neo-Hookean: psi = mu/2 (sum s^2 - d) - mu log J + lam/2 log^2 J with sigma
+// clamped at 1e-6; the clamp's derivative is 0 below it (fr).
+struct NeoHookean {
+  template <typename T, int D>
+  HD static void derivs(const T sig[D], T mu, T lam, T g[D], T A[D][D], T bm[3]) {
+    const T floor_ = T(1e-6);
+    T s[D], fr[D], logJ = T(0);
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      fr[a] = sig[a] > floor_ ? T(1) : T(0);
+      s[a] = max_(sig[a], floor_);
+      logJ += log_(s[a]);
+    }
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      g[a] = fr[a] * (mu * s[a] + (lam * logJ - mu) / s[a]);
+#pragma unroll
+      for (int b = 0; b < D; ++b)
+        A[a][b] = a == b ? fr[a] * (mu + (mu + lam - lam * logJ) / (s[a] * s[a]))
+                         : lam * (fr[a] / s[a]) * (fr[b] / s[b]);
+    }
+#pragma unroll
+    for (int k = 0; k < Pairs<D>::n; ++k) {
+      const int i = Pairs<D>::i(k), j = Pairs<D>::j(k);
+      const T closed = mu + (mu - lam * logJ) / (s[i] * s[j]);
+      // the hybrid of StvkHencky: the direct quotient where well separated
+      const T delta = sig[i] - sig[j];
+      const T scale = abs_(sig[i]) + abs_(sig[j]) + T(1);
+      const bool well_sep = abs_(delta) > T(1e-3) * scale;
+      const T direct = (g[i] - g[j]) / (well_sep ? delta : T(1));
+      const bool smooth = min_(sig[i], sig[j]) > T(2e-6);
+      bm[k] = well_sep ? direct : (smooth ? closed : T(0));
+    }
+  }
+};
+
+// Linear corotated: psi = mu ||S - I||^2 + lam/2 tr(S - I)^2; b- = 2 mu.
+struct LinearCorotated {
+  template <typename T, int D>
+  HD static void derivs(const T sig[D], T mu, T lam, T g[D], T A[D][D], T bm[3]) {
+    T tr = T(0);
+#pragma unroll
+    for (int a = 0; a < D; ++a) tr += sig[a] - T(1);
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      g[a] = T(2) * mu * (sig[a] - T(1)) + lam * tr;
+#pragma unroll
+      for (int b = 0; b < D; ++b) A[a][b] = lam + (a == b ? T(2) * mu : T(0));
+    }
+#pragma unroll
+    for (int k = 0; k < Pairs<D>::n; ++k) bm[k] = T(2) * mu;
+  }
+};
+
 }  // namespace hot

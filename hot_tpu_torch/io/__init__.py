@@ -1,1 +1,1 @@
-"""Triangle-mesh input for scene geometry."""
+"""Triangle-mesh input for scene geometry, checkpoints and frame output."""

@@ -1,9 +1,12 @@
 """Isotropic hyperelastic models in diagonal (singular-value) space.
 
-Counterpart of ``hot_tpu.models.constitutive`` for the two models the
-linearization kernel covers, fixed corotated and StVK-Hencky. Each model is
-one energy ``psi_hat(sigma, mu, lam)`` of the singular values plus its
-analytic derivatives; everything else is derived uniformly:
+Counterpart of ``hot_tpu.models.constitutive``: fixed corotated,
+Neo-Hookean, StVK-Hencky and linear corotated, each a model of the
+linearization kernel too. Each model is one energy
+``psi_hat(sigma, mu, lam)`` of the singular values plus its analytic
+derivatives (where a model clamps sigma, the clamp's derivative is 0 below
+it, as jax differentiates ``jnp.maximum``); everything else is derived
+uniformly:
 
   * P(F) = U diag(g) V^T with g = dpsi_hat/dsigma;
   * dP/dF acts through the diagonal-space Hessian: the (d, d) block
@@ -156,7 +159,72 @@ class StvkHencky:
         return _hybrid_bm(sigma, g, torch.stack(out, -1))
 
 
-MODEL_REGISTRY = {m.name: m for m in (FixedCorotated, StvkHencky)}
+class NeoHookean:
+    """Psi = mu/2 (sum s^2 - d) - mu log J + lam/2 log^2 J, with sigma
+    clamped at 1e-6 so log J stays finite through inversion."""
+
+    name = "neo_hookean"
+
+    @staticmethod
+    def psi_hat(sigma, mu, lam):
+        s = torch.clamp(sigma, min=1e-6)
+        logJ = torch.log(s).sum(-1)
+        return 0.5 * mu * (torch.sum(s * s, dim=-1) - s.shape[-1]) - mu * logJ \
+            + 0.5 * lam * logJ ** 2
+
+    @staticmethod
+    def derivatives(sigma, mu, lam):
+        """g_i = mu s_i + (lam log J - mu)/s_i; A_ii = mu + (mu + lam -
+        lam log J)/s_i^2, A_ij = lam/(s_i s_j); the clamp's derivative is 0
+        below it."""
+        free = (sigma > 1e-6).to(sigma.dtype)
+        s = torch.clamp(sigma, min=1e-6)
+        logJ = torch.log(s).sum(-1, keepdim=True)
+        mu_, lam_ = mu[..., None], lam[..., None]
+        g = free * (mu_ * s + (lam_ * logJ - mu_) / s)
+        diag = free * (mu_ + (mu_ + lam_ - lam_ * logJ) / (s * s))
+        A = (lam[..., None, None] * (free / s)[..., :, None] * (free / s)[..., None, :])
+        A = A - torch.diag_embed(torch.diagonal(A, dim1=-2, dim2=-1)) + torch.diag_embed(diag)
+        return g, A
+
+    @staticmethod
+    def bm_hat(sigma, g, mu, lam):
+        """Closed form mu + (mu - lam log J)/(s_i s_j) in the unclamped
+        branch, through _hybrid_bm."""
+        s = torch.clamp(sigma, min=1e-6)
+        logJ = torch.log(s).sum(-1)
+        closed = torch.stack([mu + (mu - lam * logJ) / (s[..., i] * s[..., j])
+                              for i, j in _pairs(s.shape[-1])], -1)
+        return _hybrid_bm(sigma, g, closed)
+
+
+class LinearCorotated:
+    """Psi = mu ||S - I||^2 + lam/2 tr(S - I)^2 (small-strain, corotated)."""
+
+    name = "linear_corotated"
+
+    @staticmethod
+    def psi_hat(sigma, mu, lam):
+        e = sigma - 1.0
+        return mu * torch.sum(e * e, dim=-1) + 0.5 * lam * torch.sum(e, dim=-1) ** 2
+
+    @staticmethod
+    def derivatives(sigma, mu, lam):
+        """g = 2 mu (s - 1) + lam tr(s - 1); A = 2 mu I + lam 1 1^T."""
+        e = sigma - 1.0
+        mu_, lam_ = mu[..., None], lam[..., None]
+        g = 2.0 * mu_ * e + lam_ * e.sum(-1, keepdim=True)
+        A = lam[..., None, None] * torch.ones(sigma.shape + sigma.shape[-1:], dtype=sigma.dtype,
+                                              device=sigma.device)
+        return g, A + torch.diag_embed(2.0 * mu_.expand_as(sigma))
+
+    @staticmethod
+    def bm_hat(sigma, g, mu, lam):
+        """(g_i - g_j)/(s_i - s_j) = 2 mu for every pair."""
+        return torch.stack([2.0 * mu] * len(_pairs(sigma.shape[-1])), -1).to(sigma.dtype)
+
+
+MODEL_REGISTRY = {m.name: m for m in (FixedCorotated, NeoHookean, StvkHencky, LinearCorotated)}
 
 
 class HessianContext(NamedTuple):

@@ -11,11 +11,13 @@ i.e. stencil -> gather -> velocity gradient -> diagonal-space Hessian apply
 -> force scatter, fused into one launch. The caller adds the mass term and
 masks inactive nodes (``sim.objective.elastic_hessian_apply``).
 
-The stencil (node_k(p), gw_pk) is the quadratic B-spline stencil of
-``ops.transfer.particle_stencil`` at the particle positions x on the grid
-of spacing dx and size res; the kernel computes it from x, so the same call
-serves every matrix-free multigrid level (its dx and res). Per-particle
-arguments are structure-of-arrays with the particle index last: x (d, n),
+The stencil (node_k(p), gw_pk) is the quadratic or cubic B-spline stencil
+(``kernel``) of ``ops.transfer.particle_stencil`` at the particle positions
+x on the grid of spacing dx and size res; the kernel computes it from x, so
+the same call serves every matrix-free multigrid level (its dx and res).
+The quadratic and cubic stencils are separate instances of the kernel.
+Per-particle arguments are structure-of-arrays with the particle index
+last: x (d, n),
 F/U/V/A (d*d, n) row-major per particle, b_plus/b_minus (n_pairs, n),
 V0 (n,). This is the layout the linearize kernel writes, so the
 per-Newton parameter block needs no transposes.
@@ -23,7 +25,9 @@ per-Newton parameter block needs no transposes.
 On the H100 the kernel is bound by bytes; a block gathers through a
 shared-memory window over its particles' nodes and scatters through a
 counting sort by node there (see the source's note). BLOCK_THREADS and
-WINDOW_NODES set its launch; ``window_stats``, when set to a
+WINDOW_NODES set its launch (``launch_config``: fewer threads where a
+cubic stencil's slots would not fit a block's shared memory);
+``window_stats``, when set to a
 ``new_window_stats`` buffer, collects its counters (blocks, blocks that
 overflowed the window, box sizes, global atomics).
 
@@ -40,6 +44,7 @@ import torch
 from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.ops import cuda_lib
 from hot_tpu_torch.ops import transfer
+from hot_tpu_torch.ops.bspline import kernel_width
 
 # threads per block, and the largest node box a block takes through shared
 # memory: 256 threads and 1536 nodes reserve 110 KB a block in fp32 3D
@@ -48,6 +53,9 @@ from hot_tpu_torch.ops import transfer
 # chosen from chip_smoke.py's sweep (PERF.md)
 BLOCK_THREADS = 256
 WINDOW_NODES = 1536
+# the most dynamic shared memory a block may opt into on an H100 (227 KB),
+# less the kernels' static shared memory
+SMEM_PER_BLOCK = 227 * 1024 - 64
 # the kernels' counters (csrc/particle_window.cuh:WindowStat), then a
 # histogram of log2(box nodes)
 STATS = ("blocks", "overflow_blocks", "window_nodes", "max_window_nodes", "global_atomics")
@@ -79,10 +87,30 @@ def soa(M):
     return M.reshape(M.shape[0], -1).T.contiguous()
 
 
-def fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt):
+def window_bytes(d: int, width: int, itemsize: int, threads: int, window_nodes: int) -> int:
+    """Dynamic shared memory of a launch (csrc/particle_window.cuh:window_bytes)."""
+    s = width ** d
+    return ((window_nodes * d + threads * s * d) * itemsize
+            + (2 * (window_nodes + 1) + threads // 32) * 4)
+
+
+def launch_config(d: int, width: int, itemsize: int):
+    """(threads, window_nodes) of a stencil kernel's launch: WINDOW_NODES and
+    the largest block, halving from BLOCK_THREADS, whose shared memory fits
+    SMEM_PER_BLOCK. Only the 3D cubic stencil in fp64 gets fewer (64): its
+    slots hold 64 nodes x 3 values per particle; in fp32 its 256 threads
+    take 222 KB, one block per SM."""
+    threads = BLOCK_THREADS
+    while window_bytes(d, width, itemsize, threads, WINDOW_NODES) > SMEM_PER_BLOCK:
+        threads //= 2
+    return threads, WINDOW_NODES
+
+
+def fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
+                      kernel: str = "quadratic"):
     """The unfused chain in plain PyTorch (the reference for the kernel)."""
     d = w.shape[-1]
-    st = transfer.particle_stencil(x.T, dx, res)
+    st = transfer.particle_stencil(x.T, dx, res, kernel=kernel)
     Fp = aos_mat(F, d)
     ctx = cm.HessianContext(U=aos_mat(U, d), V=aos_mat(V, d), A=aos_mat(A, d),
                             b_plus=b_plus.T, b_minus=b_minus.T)
@@ -110,39 +138,41 @@ def param_specs(grid_vec, x, res, **params):
     return specs
 
 
-def launch_args(ref, threads, window_nodes, stats):
+def launch_args(ref, width, threads, window_nodes, stats):
     """(threads, window_nodes, stats pointer or None) of a stencil kernel's
-    launch: the module defaults unless given."""
+    launch: ``launch_config``'s unless given."""
     if stats is not None:
         cuda_lib.check_inputs(ref, [("window_stats", stats, (len(STATS) + N_HIST,),
                                      torch.int64)])
-    return (BLOCK_THREADS if threads is None else threads,
-            WINDOW_NODES if window_nodes is None else window_nodes,
+    default_threads, default_nodes = launch_config(ref.shape[-1], width, ref.element_size())
+    return (default_threads if threads is None else threads,
+            default_nodes if window_nodes is None else window_nodes,
             None if stats is None else stats.data_ptr())
 
 
-def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, threads=None,
-                     window_nodes=None):
+def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
+                     kernel: str = "quadratic", threads=None, window_nodes=None):
     """Launch the CUDA kernel (CUDA tensors only)."""
     global launches
     params = dict(F=F, U=U, V=V, A=A, b_plus=b_plus, b_minus=b_minus, V0=V0)
     cuda_lib.check_inputs(w, param_specs(w, x, res, **params))
+    width = kernel_width(kernel)
     lib = cuda_lib.load()
     df = torch.zeros_like(w)
     rc = lib.hot_fused_apply(
-        cuda_lib.dtype_code(w), w.shape[-1], w.data_ptr(), x.data_ptr(), float(dx),
+        cuda_lib.dtype_code(w), w.shape[-1], width, w.data_ptr(), x.data_ptr(), float(dx),
         cuda_lib.int_array(res), *(t.data_ptr() for t in params.values()), float(dt),
-        df.data_ptr(), x.shape[1], *launch_args(w, threads, window_nodes, window_stats),
+        df.data_ptr(), x.shape[1], *launch_args(w, width, threads, window_nodes, window_stats),
         cuda_lib.stream_ptr(w.device))
     cuda_lib.check(rc, "fused_apply")
     launches += 1
     return df
 
 
-def fused_apply(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt):
+def fused_apply(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel: str = "quadratic"):
     """df (n_nodes, d) for grid direction w (see the module doc)."""
     if w.device.type == "cpu":
-        return fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt)
+        return fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel)
     if w.device.type != "cuda":
         raise ValueError(f"fused_apply runs on cpu or cuda tensors, not {w.device}")
-    return fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt)
+    return fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel)

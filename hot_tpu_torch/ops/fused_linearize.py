@@ -9,8 +9,11 @@ velocity v it returns
     U, V, A (d*d, n) and b_plus, b_minus (n_pairs, n): the (SPD-projected)
                     diagonal-space Hessian context at F_new, per particle.
 
-The stencil is that of the particle positions x (d, n) on the grid of
-spacing dx and size res, computed in the kernel, as in ``ops.fused_apply``.
+The stencil is the quadratic or cubic one (``kernel``) of the particle
+positions x (d, n) on the grid of spacing dx and size res, computed in the
+kernel, as in ``ops.fused_apply``. Every model of
+``models.constitutive.MODEL_REGISTRY`` has a code (``MODEL_CODES``) in the
+kernel.
 The context comes out in the structure-of-arrays layout that the apply
 reads (see there), so one Newton iteration is one launch of this kernel
 followed by one launch of the apply per CG iteration.
@@ -34,18 +37,20 @@ import torch
 from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.ops import cuda_lib
 from hot_tpu_torch.ops import transfer
+from hot_tpu_torch.ops.bspline import kernel_width
 from hot_tpu_torch.ops.fused_apply import aos_mat, launch_args, param_specs, soa
 
-MODEL_CODES = {"fixed_corotated": 0, "stvk_hencky": 1}
+MODEL_CODES = {"fixed_corotated": 0, "stvk_hencky": 1, "neo_hookean": 2, "linear_corotated": 3}
 
 launches = 0
 window_stats = None
 
 
-def fused_linearize_plain(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True):
+def fused_linearize_plain(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True,
+                          kernel: str = "quadratic"):
     """The unfused chain in plain PyTorch (the reference for the kernel)."""
     d = v.shape[-1]
-    st = transfer.particle_stencil(x.T, dx, res)
+    st = transfer.particle_stencil(x.T, dx, res, kernel=kernel)
     Fp = aos_mat(F, d)
     eye = torch.eye(d, dtype=v.dtype, device=v.device)
     F_new = (eye + dt * transfer.velocity_gradient(st, v)) @ Fp
@@ -55,7 +60,7 @@ def fused_linearize_plain(v, x, dx, res, F, mu, lam, V0, dt, model, project: boo
 
 
 def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True,
-                         threads=None, window_nodes=None):
+                         kernel: str = "quadratic", threads=None, window_nodes=None):
     """Launch the CUDA kernel (CUDA tensors only)."""
     global launches
     if model.name not in MODEL_CODES:
@@ -63,26 +68,30 @@ def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool
     d = v.shape[-1]
     n = x.shape[1]
     cuda_lib.check_inputs(v, param_specs(v, x, res, F=F, mu=mu, lam=lam, V0=V0))
+    width = kernel_width(kernel)
     lib = cuda_lib.load()
     n_pairs = 1 if d == 2 else 3
     f = torch.zeros_like(v)
     U, V, A = (torch.empty((d * d, n), dtype=v.dtype, device=v.device) for _ in range(3))
     bp, bm = (torch.empty((n_pairs, n), dtype=v.dtype, device=v.device) for _ in range(2))
     rc = lib.hot_fused_linearize(
-        MODEL_CODES[model.name], cuda_lib.dtype_code(v), d, v.data_ptr(), x.data_ptr(),
+        MODEL_CODES[model.name], cuda_lib.dtype_code(v), d, width, v.data_ptr(), x.data_ptr(),
         float(dx), cuda_lib.int_array(res), F.data_ptr(), mu.data_ptr(), lam.data_ptr(),
         V0.data_ptr(), float(dt), int(bool(project)), f.data_ptr(), U.data_ptr(),
         V.data_ptr(), A.data_ptr(), bp.data_ptr(), bm.data_ptr(), n,
-        *launch_args(v, threads, window_nodes, window_stats), cuda_lib.stream_ptr(v.device))
+        *launch_args(v, width, threads, window_nodes, window_stats),
+        cuda_lib.stream_ptr(v.device))
     cuda_lib.check(rc, "fused_linearize")
     launches += 1
     return f, U, V, A, bp, bm
 
 
-def fused_linearize(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True):
+def fused_linearize(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True,
+                    kernel: str = "quadratic"):
     """(f, U, V, A, b_plus, b_minus) at grid velocity v (see the module doc)."""
+    args = (v, x, dx, res, F, mu, lam, V0, dt, model, project, kernel)
     if v.device.type == "cpu":
-        return fused_linearize_plain(v, x, dx, res, F, mu, lam, V0, dt, model, project)
+        return fused_linearize_plain(*args)
     if v.device.type != "cuda":
         raise ValueError(f"fused_linearize runs on cpu or cuda tensors, not {v.device}")
-    return fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project)
+    return fused_linearize_cuda(*args)

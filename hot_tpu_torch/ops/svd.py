@@ -8,6 +8,7 @@ so both packages take the same rotations:
     (stable), det(Q) = +1 by flipping the last column.
   * svd: V from eigh_sym(A^T A), then Givens QR of A V; A = U diag(sigma) V^T,
     det(U) = det(V) = +1, sigma descending with sigma[-1] < 0 iff det(A) < 0.
+  * polar: A = R S from the SVD, R = U V^T.
 
 Every function takes a leading batch: (..., d, d).
 """
@@ -117,3 +118,12 @@ def svd(A):
     col_signs = signs.clone()
     col_signs[..., d - 1] = signs[..., d - 1] * total
     return U * col_signs.unsqueeze(-2), sigma * col_signs, V
+
+
+def polar(A):
+    """Polar decomposition A = R S of (..., d, d): R = U V^T a proper
+    rotation, S = V diag(sigma) V^T symmetric. With the signed-sigma SVD, S
+    is indefinite for inverted A (det(A) < 0)."""
+    U, sigma, V = svd(A)
+    Vt = V.transpose(-1, -2)
+    return U @ Vt, V @ (sigma.unsqueeze(-1) * Vt)

@@ -18,20 +18,21 @@ from typing import NamedTuple, Tuple
 import torch
 
 from hot_tpu_torch.ops.bspline import (
+    bspline_weights,
     kernel_width,
-    quadratic_bspline_weights,
     stencil_offsets,
     tensor_weights,
 )
 
 
 class Stencil(NamedTuple):
-    """Per-particle quadratic-B-spline stencil against a dense flat grid."""
+    """Per-particle B-spline stencil (W = 3 quadratic, 4 cubic nodes per
+    axis) against a dense flat grid."""
 
-    node_ids: torch.Tensor  # (n, 3^dim) int64 flat node indices (row-major)
-    wn: torch.Tensor        # (n, 3^dim) interpolation weights
-    gwn: torch.Tensor       # (n, 3^dim, dim) weight gradients (1/dx units)
-    rel: torch.Tensor       # (n, 3^dim, dim) node_pos - particle_pos
+    node_ids: torch.Tensor  # (n, W^dim) int64 flat node indices (row-major)
+    wn: torch.Tensor        # (n, W^dim) interpolation weights
+    gwn: torch.Tensor       # (n, W^dim, dim) weight gradients (1/dx units)
+    rel: torch.Tensor       # (n, W^dim, dim) node_pos - particle_pos
 
 
 def _row_major_strides(res, device):
@@ -44,10 +45,11 @@ def _row_major_strides(res, device):
 
 def particle_stencil(x, dx: float, res: Tuple[int, ...],
                      kernel: str = "quadratic") -> Stencil:
-    """Transfer stencil for particle positions x (n, dim)."""
+    """Transfer stencil for particle positions x (n, dim); kernel is
+    "quadratic" or "cubic". Node coordinates are clamped to [0, res - 1]."""
     dim = x.shape[-1]
     width = kernel_width(kernel)
-    base, w, dw = quadratic_bspline_weights(x, dx)
+    base, w, dw = bspline_weights(x, dx, kernel)
     wn, gwn = tensor_weights(w, dw)
     offs = stencil_offsets(dim, width, device=x.device)
     coords = base[:, None, :] + offs[None, :, :]
@@ -94,7 +96,7 @@ def scatter_sum(node_ids, values, n_nodes: int):
 
 
 def gather(grid_vals, node_ids):
-    """(n_nodes, ...) -> (n, 3^dim, ...)."""
+    """(n_nodes, ...) -> (n, W^dim, ...)."""
     return grid_vals[node_ids]
 
 

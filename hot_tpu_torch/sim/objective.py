@@ -9,10 +9,10 @@ the two hot calls goes through the fused kernels:
   * ``multiply`` (once per CG iteration)      -> ``ops.fused_apply``.
 
 Both dispatch on the tensors' device (plain PyTorch on the CPU, the CUDA
-kernel on the card). The kernels compute the particles' stencil from their
-positions; positions and deformation gradients are kept in the kernels'
-structure-of-arrays layout (particle index last), built once per step in
-``make_objective``.
+kernel on the card). The kernels compute the particles' stencil (quadratic
+or cubic, ``ObjectiveContext.kernel``) from their positions; positions and
+deformation gradients are kept in the kernels' structure-of-arrays layout
+(particle index last), built once per step in ``make_objective``.
 
 Unknowns are (n_nodes, d) over the flattened dense grid; inactive nodes
 (zero mass) act as the identity so CG leaves them alone.
@@ -49,6 +49,7 @@ class ObjectiveContext(NamedTuple):
     F_soa: torch.Tensor      # (d*d, n)
     dx: float
     res: tuple               # grid size per axis
+    kernel: str              # transfer kernel family: quadratic | cubic
 
 
 class HessianState(NamedTuple):
@@ -68,10 +69,10 @@ class HessianState(NamedTuple):
 
 
 def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
-                   dt: float, dx: float, x, res) -> ObjectiveContext:
+                   dt: float, dx: float, x, res, kernel: str = "quadratic") -> ObjectiveContext:
     """Build the ObjectiveContext for the particles at x (n, d), whose
-    stencil on the grid (dx, res) is `stencil`, with the characteristic-norm
-    scale:
+    stencil of the kernel family on the grid (dx, res) is `stencil`, with
+    the characteristic-norm scale:
       force scale   f_i = sum_p w_ip V0_p (2 mu_p + lam_p) / dx
       impulse scale s_i = max(dt f_i, m_i dx / dt)
     (the second term keeps free-fall nodes, with no stiffness, scaled)."""
@@ -84,7 +85,7 @@ def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
     return ObjectiveContext(
         stencil=stencil, F_n=F_n, V0=V0, mu=mu, lam=lam, grid_m=grid_m,
         v_star=v_star, active=active, proj=proj, dt=dt, cn_scale=cn_scale,
-        x_soa=soa(x), F_soa=soa(F_n), dx=dx, res=tuple(res),
+        x_soa=soa(x), F_soa=soa(F_n), dx=dx, res=tuple(res), kernel=kernel,
     )
 
 
@@ -121,18 +122,18 @@ def linearize(model, obj: ObjectiveContext, v, project_spd: bool = True):
     per-Newton-iteration evaluation, through ``ops.fused_linearize``."""
     f, U, V, A, bp, bm = fused_linearize(
         v, obj.x_soa, obj.dx, obj.res, obj.F_soa, obj.mu, obj.lam, obj.V0, obj.dt, model,
-        project=project_spd)
+        project=project_spd, kernel=obj.kernel)
     r = obj.grid_m[:, None] * (v - obj.v_star) - obj.dt * f
     return project(obj, r), HessianState(U=U, V=V, A=A, b_plus=bp, b_minus=bm)
 
 
 def elastic_hessian_apply(x_soa, dx: float, res, F_soa, hess: HessianState, V0,
-                          dt: float, grid_m, active, w):
+                          dt: float, grid_m, active, w, kernel: str = "quadratic"):
     """Matrix-free (M + dt^2 K) w through ``ops.fused_apply``; the identity
     on inactive nodes. The grid (dx, res) may be any multigrid level's, with
     that level's mass and mask."""
     df = fused_apply(w, x_soa, dx, res, F_soa, hess.U, hess.V, hess.A, hess.b_plus,
-                     hess.b_minus, V0, dt)
+                     hess.b_minus, V0, dt, kernel)
     out = grid_m[:, None] * w - dt * df
     return torch.where(active[:, None], out, w)
 
@@ -140,7 +141,7 @@ def elastic_hessian_apply(x_soa, dx: float, res, F_soa, hess: HessianState, V0,
 def multiply(obj: ObjectiveContext, hess: HessianState, w):
     """H w at the finest level."""
     return elastic_hessian_apply(obj.x_soa, obj.dx, obj.res, obj.F_soa, hess, obj.V0, obj.dt,
-                                 obj.grid_m, obj.active, w)
+                                 obj.grid_m, obj.active, w, obj.kernel)
 
 
 def elastic_block_diag(stencil, F_n, ctx: cm.HessianContext, V0, dt: float,

@@ -1,22 +1,27 @@
-"""The implicit MPM time step and the frame loop.
+"""The MPM time step and the frame loop.
 
-Counterpart of ``hot_tpu.sim.simulation`` for the dense grid and the
-implicit backward-Euler integrator with inexact Newton: P2G -> grid BC ->
-Newton {linearize -> preconditioner -> CG or MINRES {Hessian apply}
-[-> Armijo line search]} -> G2P -> F update -> plasticity -> advection.
-The Hessian is matrix-free (``ops.fused_apply``) or, with
-``matrix_free=False``, an explicit BSR operator assembled once per Newton
-iteration (``ops.bsr``, applied by ``ops.bsr_spmv``). The
-preconditioner is none, mass Jacobi, block-Jacobi or HOT's multigrid
-(``solver.multigrid``: matrix-free quadrature levels or assembled levels
-with Galerkin or quadrature coarsening). The plasticity return maps are
-von Mises, snow (with Jp) and Drucker-Prager at a 30 degree friction angle
-(``models.plasticity``). The kernels run whenever the state lives on a
-CUDA device.
+Counterpart of ``hot_tpu.sim.simulation`` for the dense grid, with quadratic
+or cubic B-spline transfers (``transfer_kernel``). The default integrator is
+implicit backward Euler with inexact Newton: P2G -> grid BC -> Newton
+{linearize -> preconditioner -> CG or MINRES {Hessian apply} [-> Armijo line
+search]} -> G2P -> F update -> plasticity -> advection. The Hessian is
+matrix-free (``ops.fused_apply``) or, with ``matrix_free=False``, an
+explicit BSR operator assembled once per Newton iteration (``ops.bsr``,
+applied by ``ops.bsr_spmv``). The preconditioner is none, mass Jacobi,
+block-Jacobi or HOT's multigrid (``solver.multigrid``: matrix-free
+quadrature levels or assembled levels with Galerkin or quadrature
+coarsening). ``solver.nonlinear="lbfgs"`` minimises the same objective by
+L-BFGS (``solver.lbfgs``, the paper's LBFGS-H baseline) and
+``solver.integrator="explicit"`` takes a symplectic-Euler grid update at
+F_n with no solve. The plasticity return maps are von Mises, snow (with Jp)
+and Drucker-Prager at a 30 degree friction angle (``models.plasticity``).
+The kernels run whenever the state lives on a CUDA device.
 
-The step is eager PyTorch; dt is a Python float. Not ported yet (they raise
-NotImplementedError): the sparse grid, cubic transfers, the explicit
-integrator, LBFGS, the composed Galerkin multigrid level.
+The step is eager PyTorch; dt is a Python float. Not ported (they raise
+NotImplementedError): the sparse grid and the composed Galerkin multigrid
+level. As in hot_tpu, cubic transfers refuse every operator assembled into
+the 5-wide quadratic BSR: the explicit outer Hessian, assembled multigrid
+levels and (the port's addition) the direct coarse solve.
 """
 
 from __future__ import annotations
@@ -30,12 +35,13 @@ from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.models import plasticity as plast
 from hot_tpu_torch.ops import bsr
 from hot_tpu_torch.ops import transfer
-from hot_tpu_torch.ops.bspline import apic_d_inv_factor
+from hot_tpu_torch.ops.bspline import apic_d_inv_factor, kernel_width
 from hot_tpu_torch.sim import collision
 from hot_tpu_torch.sim import objective as obj_mod
 from hot_tpu_torch.sim.state import ParticleState
 from hot_tpu_torch.solver import multigrid as mg_mod
-from hot_tpu_torch.solver.newton import newton_solve
+from hot_tpu_torch.solver.lbfgs import lbfgs_solve
+from hot_tpu_torch.solver.newton import NewtonResult, newton_solve
 from hot_tpu_torch.utils.config import SimConfig
 from hot_tpu_torch.utils.metrics import MetricsLogger
 from hot_tpu_torch.utils.timing import PhaseTimer
@@ -55,6 +61,8 @@ class StepStats(NamedTuple):
 
 
 PLASTICITY = ("von_mises", "snow", "drucker_prager")
+INTEGRATORS = ("implicit", "explicit")
+NONLINEAR = ("newton", "lbfgs")
 DRUCKER_PRAGER_FRICTION_DEG = 30.0
 
 
@@ -63,9 +71,6 @@ def _check_supported(cfg: SimConfig, plasticity):
     mgc = sol.multigrid
     unsupported = [
         (cfg.grid_backend != "dense", f"grid_backend='{cfg.grid_backend}'"),
-        (cfg.transfer_kernel != "quadratic", f"transfer_kernel='{cfg.transfer_kernel}'"),
-        (sol.integrator != "implicit", f"integrator='{sol.integrator}'"),
-        (sol.nonlinear != "newton", f"nonlinear='{sol.nonlinear}'"),
         (sol.preconditioner == "multigrid" and mgc.assembled and mgc.coarsening == "galerkin"
          and mgc.assembled_from_level > 0,
          "composed Galerkin multigrid (assembled_from_level > 0, coarsening='galerkin')"),
@@ -73,6 +78,27 @@ def _check_supported(cfg: SimConfig, plasticity):
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported to hot_tpu_torch yet")
+    for name, value, allowed in (("integrator", sol.integrator, INTEGRATORS),
+                                 ("nonlinear", sol.nonlinear, NONLINEAR)):
+        if value not in allowed:
+            raise ValueError(f"unknown {name} '{value}'; have {allowed}")
+    if kernel_width(cfg.transfer_kernel) != 3:
+        # hot_tpu's refusals (simulation.py:291-295, 363-367), whatever the
+        # integrator, and the direct coarse solve, which assembles the
+        # coarsest level the same way
+        if not sol.matrix_free:
+            raise NotImplementedError(
+                "explicit BSR assembles the 5-wide quadratic structure; use "
+                "matrix_free=True with cubic transfers")
+        if sol.preconditioner == "multigrid":
+            if mgc.assembled:
+                raise NotImplementedError(
+                    "assembled MG levels use the 5-wide quadratic BSR; run the matrix-free "
+                    "MG (multigrid.assembled=False) with cubic")
+            if mgc.coarse_solver == "direct":
+                raise NotImplementedError(
+                    "the direct coarse solve assembles the 5-wide quadratic BSR; use "
+                    "multigrid.coarse_solver='smoother' or 'cg' with cubic")
     if plasticity is not None and plasticity not in PLASTICITY:
         raise ValueError(f"unknown plasticity '{plasticity}'; have {PLASTICITY}")
 
@@ -90,42 +116,45 @@ def return_map(plasticity: Optional[str], F, state: ParticleState):
     return F, state.Jp
 
 
-def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfig,
-                     model, colliders: Sequence[collision.Collider],
-                     plasticity: Optional[str] = None) -> Tuple[ParticleState, StepStats]:
-    """One implicit backward-Euler MPM step from `state` at time t.
+def _explicit_update(model, obj: obj_mod.ObjectiveContext, state: ParticleState,
+                     inv_m) -> NewtonResult:
+    """Symplectic-Euler grid update: forces at F_n, v = v* + dt f / m, no
+    solve (hot_tpu/sim/simulation.py:431-448). No kernel runs."""
+    P = cm.first_piola(model, state.F, state.mu, state.lam)
+    f = transfer.scatter_force(obj.stencil, P @ state.F.transpose(-1, -2), state.V0,
+                               obj.grid_m.shape[0])
+    return NewtonResult(v=obj.v_star + obj.dt * f * inv_m[:, None], iters=0, cg_iters=0,
+                        cn_residual=0.0, cn_residual0=0.0, converged=True, cn_history=[],
+                        ls_backtracks=0)
 
-    Float32 products run in full float32: TF32, like the TPU's default bf16
-    matmul passes, loses about three decimal digits, which stalls Newton.
-    """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    _check_supported(cfg, plasticity)
-    dim = cfg.dim
-    res = tuple(cfg.grid_res[:dim])
-    dx = cfg.dx
-    dtype, device = state.x.dtype, state.x.device
+
+def _lbfgs_update(model, obj: obj_mod.ObjectiveContext, sol, v0) -> NewtonResult:
+    """L-BFGS on the incremental potential with the mass preconditioner as
+    its initial inverse Hessian, at most max_cg iterations; the stats are
+    filled as hot_tpu fills them (iterations for both counts, the final
+    gradient's CN for both residuals). The gradient is the residual of the
+    linearize (its kernel on the card)."""
+    res = lbfgs_solve(
+        energy=lambda v: obj_mod.energy(model, obj, v),
+        gradient=lambda v: obj_mod.linearize(model, obj, v, project_spd=sol.project_hessian)[0],
+        project=lambda r: obj_mod.project(obj, r),
+        precondition=lambda r: obj_mod.mass_precondition(obj, r),
+        cn_norm=lambda r: obj_mod.cn_norm(obj, r),
+        v0=v0, history=sol.lbfgs_history, max_iters=sol.max_cg,
+        cn_eps=sol.cn_eps if sol.use_cn else 0.0)
+    return NewtonResult(v=res.v, iters=res.iters, cg_iters=res.iters, cn_residual=res.grad_norm,
+                        cn_residual0=res.grad_norm, converged=res.converged, cn_history=[],
+                        ls_backtracks=res.backtracks)
+
+
+def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
+                   state: ParticleState, v0, constrained) -> NewtonResult:
+    """Inexact Newton with the configured Hessian form and preconditioner;
+    the Hessian state is (per-particle context, BSR or None)."""
     sol = cfg.solver
-
-    # ---- P2G
-    st = transfer.particle_stencil(state.x, dx, res, kernel=cfg.transfer_kernel)
-    n_nodes = transfer.n_nodes_of(res)
-    node_pos = transfer.node_positions(res, dx, dtype, device)
-    grid_m, grid_mv = transfer.p2g_mass_momentum(st, state.v, state.C, state.m, n_nodes)
-    active = grid_m > 0
-    inv_m = torch.where(active, 1.0 / torch.clamp(grid_m, min=1e-30), torch.zeros_like(grid_m))
-    v_grid = grid_mv * inv_m[:, None]
-
-    # ---- grid BC
-    gravity = torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device)
-    v_star = v_grid + dt * gravity[None, :]
-    proj, v_bc, constrained = collision.grid_boundary_conditions(
-        node_pos, t, colliders, grid_v=v_star, boundary_margin=2, res=res, dx=dx)
-    v0 = collision.apply_bc_to_velocity(v_star, proj, v_bc)
-
-    # ---- implicit solve: the Hessian state is (per-particle context, BSR or None)
-    objective = obj_mod.make_objective(model, st, state.F, state.V0, state.mu, state.lam,
-                                       grid_m, v_star, proj, dt, dx, state.x, res)
+    dim, res, dx, dt = cfg.dim, objective.res, objective.dx, objective.dt
+    st, grid_m, active = objective.stencil, objective.grid_m, objective.active
+    n_nodes, dtype = grid_m.shape[0], state.x.dtype
 
     def lin_particles(v):
         return obj_mod.linearize(model, objective, v, project_spd=sol.project_hessian)
@@ -169,7 +198,8 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
         mgc = sol.multigrid
         mg_static = mg_mod.build_static(
             state.x, state.m, res, dx, mgc.levels, constrained, dtype,
-            assembled_from=mgc.assembled_from_level if mgc.assembled else None)
+            assembled_from=mgc.assembled_from_level if mgc.assembled else None,
+            kernel=cfg.transfer_kernel)
 
         def build_precond(hp):
             return mg_mod.build_precond(mg_static, state.F, hp[0], state.V0, dt, mgc, dim)
@@ -185,7 +215,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     else:
         raise ValueError(f"unknown preconditioner '{sol.preconditioner}'")
 
-    result = newton_solve(
+    return newton_solve(
         linearize=linearize,
         multiply=multiply,
         project=lambda r: obj_mod.project(objective, r),
@@ -205,6 +235,52 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
         line_search=sol.line_search,
         precond_refresh=sol.precond_refresh,
     )
+
+
+def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfig,
+                     model, colliders: Sequence[collision.Collider],
+                     plasticity: Optional[str] = None) -> Tuple[ParticleState, StepStats]:
+    """One MPM step from `state` at time t (implicit backward Euler unless
+    cfg.solver.integrator is "explicit").
+
+    Float32 products run in full float32: TF32, like the TPU's default bf16
+    matmul passes, loses about three decimal digits, which stalls Newton.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _check_supported(cfg, plasticity)
+    dim = cfg.dim
+    res = tuple(cfg.grid_res[:dim])
+    dx = cfg.dx
+    dtype, device = state.x.dtype, state.x.device
+    sol = cfg.solver
+
+    # ---- P2G
+    st = transfer.particle_stencil(state.x, dx, res, kernel=cfg.transfer_kernel)
+    n_nodes = transfer.n_nodes_of(res)
+    node_pos = transfer.node_positions(res, dx, dtype, device)
+    grid_m, grid_mv = transfer.p2g_mass_momentum(st, state.v, state.C, state.m, n_nodes)
+    active = grid_m > 0
+    inv_m = torch.where(active, 1.0 / torch.clamp(grid_m, min=1e-30), torch.zeros_like(grid_m))
+    v_grid = grid_mv * inv_m[:, None]
+
+    # ---- grid BC
+    gravity = torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device)
+    v_star = v_grid + dt * gravity[None, :]
+    proj, v_bc, constrained = collision.grid_boundary_conditions(
+        node_pos, t, colliders, grid_v=v_star, boundary_margin=2, res=res, dx=dx)
+    v0 = collision.apply_bc_to_velocity(v_star, proj, v_bc)
+
+    # ---- grid update: implicit (Newton or L-BFGS) or explicit
+    objective = obj_mod.make_objective(model, st, state.F, state.V0, state.mu, state.lam,
+                                       grid_m, v_star, proj, dt, dx, state.x, res,
+                                       kernel=cfg.transfer_kernel)
+    if sol.integrator == "explicit":
+        result = _explicit_update(model, objective, state, inv_m)
+    elif sol.nonlinear == "lbfgs":
+        result = _lbfgs_update(model, objective, sol, v0)
+    else:
+        result = _newton_update(model, objective, cfg, state, v0, constrained)
     v_new = collision.apply_bc_to_velocity(result.v, proj, v_bc)
 
     # ---- G2P + state update

@@ -3,7 +3,9 @@
 Counterpart of ``hot_tpu.solver.multigrid`` (dense levels). Coarse level L
 has spacing 2^L dx; fine nodes embed in the coarse grid's quadratic
 B-spline stencils (prolongation = interpolation weights, restriction = its
-transpose). A level's operator is one of:
+transpose), whatever the transfer kernel. A level's particle quadrature uses
+the transfer kernel family of the step (quadratic or cubic). A level's
+operator is one of:
 
   * matrix-free: the particle-quadrature Hessian apply at the level's
     spacing, through ``ops.fused_apply`` on the card (``MGLevel.mat_sym`` is
@@ -58,6 +60,7 @@ class MGLevel:
     # matrix-free levels: the particle positions (d, n) SoA, from which the
     # fused apply builds the stencil at this level's dx and res
     x_soa: Optional[torch.Tensor] = None
+    kernel: str = "quadratic"   # the particle stencil's kernel family
 
 
 class MGStatic(NamedTuple):
@@ -81,19 +84,26 @@ def coarse_res(res: Tuple[int, ...]) -> Tuple[int, ...]:
 
 
 def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
-                 assembled_from: Optional[int] = None) -> MGStatic:
+                 assembled_from: Optional[int] = None,
+                 kernel: str = "quadratic") -> MGStatic:
     """Per-step hierarchy topology, mass and BC.
 
     constrained: (n_nodes_0,) bool fine-level Dirichlet/contact nodes. A
     coarse node is constrained when more than 25% of its restriction weight
     comes from constrained fine nodes. assembled_from: index of the first
-    assembled level (None: all levels matrix-free)."""
+    assembled level (None: all levels matrix-free). kernel: the particle
+    stencils' family; assembled levels fill the quadratic 5-wide structure,
+    so a cubic hierarchy is matrix-free (hot_tpu refuses the rest too)."""
+    if kernel != "quadratic" and assembled_from is not None:
+        raise NotImplementedError(
+            "assembled MG levels use the 5-wide quadratic BSR; run the matrix-free MG "
+            "(multigrid.assembled=False) with cubic")
     device = x.device
     levels, embeds = [], []
     cur_res, cur_dx, cons = tuple(res), dx, constrained
     x_soa = soa(x)
     for l in range(n_levels):
-        st = transfer.particle_stencil(x, cur_dx, cur_res)
+        st = transfer.particle_stencil(x, cur_dx, cur_res, kernel=kernel)
         n_nodes = transfer.n_nodes_of(cur_res)
         grid_m = transfer.scatter_sum(st.node_ids, st.wn * m[:, None], n_nodes)
         active = grid_m > 0
@@ -102,7 +112,7 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
             stencil=st, grid_m=grid_m, active=active, free=active & ~cons,
             dx=cur_dx, res=cur_res,
             mat_sym=bsr_mod.structure(active, cur_res, dtype=dtype) if assembled else None,
-            x_soa=None if assembled else x_soa))
+            x_soa=None if assembled else x_soa, kernel=kernel))
         if l == n_levels - 1:
             break
         nxt_res, nxt_dx = coarse_res(cur_res), cur_dx * 2.0
@@ -127,7 +137,7 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
 def level_multiply(level: MGLevel, pre: MGPrecond, dt: float, w):
     """Matrix-free A_l w through ``ops.fused_apply``; identity on inactive nodes."""
     return obj_mod.elastic_hessian_apply(level.x_soa, level.dx, level.res, pre.F_soa, pre.hess,
-                                         pre.V0, dt, level.grid_m, level.active, w)
+                                         pre.V0, dt, level.grid_m, level.active, w, level.kernel)
 
 
 def level_project(level: MGLevel, r):

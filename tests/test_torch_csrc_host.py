@@ -19,8 +19,10 @@ The particle kernels are checked in lattice order (every block through its
 shared-memory window), with half the particles permuted under a small window
 budget (both branches in one launch, with the window counters checked
 against boxes computed here), and with the particles moved into the clamped
-boundary band. This cannot show that nvcc accepts the sources or that they
-are right on the card; chip_smoke.py and the `cuda`-marked tests do that.
+boundary band; with the quadratic and the cubic stencil (the width is a
+template parameter), and for the four model codes of the linearize. This
+cannot show that nvcc accepts the sources or that they are right on the
+card; chip_smoke.py and the `cuda`-marked tests do that.
 
 Tolerances are relative to the plain result's largest entry: 1e-10 in fp64
 (summation order only) and 2e-5 in fp32, as chip_smoke.py states them.
@@ -38,6 +40,7 @@ from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
 from hot_tpu_torch.ops import cuda_lib
 from hot_tpu_torch.ops import fused_apply as fa
+from hot_tpu_torch.ops.bspline import kernel_width
 from hot_tpu_torch.ops.bsr_spmv import bsr_spmv_plain
 from hot_tpu_torch.ops import fused_linearize as fl
 from hot_tpu_torch.scenes import build_scene
@@ -252,9 +255,11 @@ def _ptr(t):
 
 
 def _check_kernels(host_lib, c, model_name, dtype, threads=128,
-                   window_nodes=fa.WINDOW_NODES, stats=(None, None), project=True):
+                   window_nodes=fa.WINDOW_NODES, stats=(None, None), project=True,
+                   kernel="quadratic"):
     """Both host-compiled kernels against their plain versions on inputs c."""
     model = MODEL_REGISTRY[model_name]
+    width = kernel_width(kernel)
     x = fa.soa(c["x"])
     F = fa.soa(c["F"])
     d, n = x.shape
@@ -265,12 +270,12 @@ def _check_kernels(host_lib, c, model_name, dtype, threads=128,
     code = 0 if dtype == torch.float32 else 1
     res = cuda_lib.int_array(c["res"])
     rc = host_lib.hot_fused_linearize(
-        fl.MODEL_CODES[model_name], code, d, _ptr(c["v"]), _ptr(x), c["dx"], res, _ptr(F),
+        fl.MODEL_CODES[model_name], code, d, width, _ptr(c["v"]), _ptr(x), c["dx"], res, _ptr(F),
         _ptr(c["mu"]), _ptr(c["lam"]), _ptr(c["V0"]), DT, int(project), _ptr(f), _ptr(U),
         _ptr(V), _ptr(A), _ptr(bp), _ptr(bm), n, threads, window_nodes, _ptr(stats[0]), None)
     assert rc == 0
     want = fl.fused_linearize_plain(c["v"], x, c["dx"], c["res"], F, c["mu"], c["lam"],
-                                    c["V0"], DT, model, project)
+                                    c["V0"], DT, model, project, kernel)
     tol_lin, tol_apply = TOL[dtype]
     for got, ref in zip((f, A, bp, bm), (want[0], want[3], want[4], want[5])):
         assert _rel(got, ref) <= tol_lin
@@ -284,19 +289,20 @@ def _check_kernels(host_lib, c, model_name, dtype, threads=128,
     w = torch.randn(c["v"].shape, dtype=dtype, generator=torch.Generator().manual_seed(1))
     df = torch.zeros_like(w)
     ctx = want[1:]
-    rc = host_lib.hot_fused_apply(code, d, _ptr(w), _ptr(x), c["dx"], res, _ptr(F),
+    rc = host_lib.hot_fused_apply(code, d, width, _ptr(w), _ptr(x), c["dx"], res, _ptr(F),
                                   *map(_ptr, ctx), _ptr(c["V0"]), DT, _ptr(df), n, threads,
                                   window_nodes, _ptr(stats[1]), None)
     assert rc == 0
-    assert _rel(df, fa.fused_apply_plain(w, x, c["dx"], c["res"], F, *ctx, c["V0"], DT)) \
-        <= tol_apply
+    assert _rel(df, fa.fused_apply_plain(w, x, c["dx"], c["res"], F, *ctx, c["V0"], DT,
+                                         kernel)) <= tol_apply
 
 
-def _boxes(x, dx, res, threads):
+def _boxes(x, dx, res, threads, width=3):
     """Each block's node-box size, as the kernels' window reduction forms it."""
-    base = torch.floor(x / dx - 0.5).long()
+    base = (torch.floor(x / dx - 0.5) if width == 3 else torch.floor(x / dx) - 1).long()
     hi = torch.tensor(res) - 1
-    lo, top = torch.minimum(base.clamp(min=0), hi), torch.minimum((base + 2).clamp(min=0), hi)
+    lo = torch.minimum(base.clamp(min=0), hi)
+    top = torch.minimum((base + width - 1).clamp(min=0), hi)
     return [int((top[i:i + threads].max(0).values - lo[i:i + threads].min(0).values + 1).prod())
             for i in range(0, x.shape[0], threads)]
 
@@ -341,7 +347,23 @@ def test_host_compiled_kernels_unprojected_heterogeneous(host_lib, rng, d, model
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_host_compiled_kernels_permuted_order(host_lib, rng, dtype):
+@pytest.mark.parametrize("model_name", ["neo_hookean", "linear_corotated"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_kernels_new_models(host_lib, rng, d, model_name, dtype):
+    """Model codes 2 (Neo-Hookean) and 3 (linear corotated) of the
+    linearize, quadratic stencil."""
+    _check_kernels(host_lib, _inputs(d, dtype, rng), model_name, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model_name", list(fl.MODEL_CODES))
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_cubic_kernels_match_plain(host_lib, rng, d, model_name, dtype):
+    """The 4-wide (cubic) instances of both kernels, every model."""
+    _check_kernels(host_lib, _inputs(d, dtype, rng), model_name, dtype, kernel="cubic")
+
+
+def _check_permuted(host_lib, rng, dtype, width):
     """The second half of the particles permuted at random, 64-thread blocks
     and a window budget that the lattice-ordered blocks fit: the permuted
     blocks take the global-atomic branch of the same launch. Both kernels
@@ -352,23 +374,37 @@ def test_host_compiled_kernels_permuted_order(host_lib, rng, dtype):
     perm = torch.cat([torch.arange(n // 2), tail[torch.from_numpy(rng.permutation(len(tail)))]])
     for key in ("x", "F", "mu", "lam", "V0"):
         c[key] = c[key][perm].contiguous()
-    boxes = _boxes(c["x"], c["dx"], c["res"], threads)
+    boxes = _boxes(c["x"], c["dx"], c["res"], threads, width)
     budget = max(boxes[:(n // 2) // threads])
     over = [b for b in boxes if b > budget]
     assert 0 < len(over) < len(boxes)
     stats = (torch.zeros(N_STATS, dtype=torch.int64), torch.zeros(N_STATS, dtype=torch.int64))
-    _check_kernels(host_lib, c, "fixed_corotated", dtype, threads, budget, stats)
+    _check_kernels(host_lib, c, "fixed_corotated", dtype, threads, budget, stats,
+                   kernel="cubic" if width == 4 else "quadratic")
     for buf in stats:
         got = fa.read_window_stats(buf)
         assert (got["blocks"], got["overflow_blocks"]) == (len(boxes), len(over))
         assert (got["window_nodes"], got["max_window_nodes"]) == (sum(boxes), max(boxes))
         assert sum(got["log2_nodes_histogram"].values()) == len(boxes)
-        # the permuted blocks issue 81 atomics per particle; the windowed
-        # ones one per non-zero box entry, at most 3 per box node
-        direct = 81 * sum(min(threads, n - i * threads) for i, b in enumerate(boxes)
-                          if b > budget)
+        # the permuted blocks take 3 W^3 global atomics per particle (81, cubic
+        # 192); the windowed ones one per non-zero box entry, at most 3 per
+        # box node
+        direct = 3 * width ** 3 * sum(min(threads, n - i * threads)
+                                      for i, b in enumerate(boxes) if b > budget)
         assert direct < got["global_atomics"] <= direct + 3 * sum(b for b in boxes
                                                                   if b <= budget)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_host_compiled_kernels_permuted_order(host_lib, rng, dtype):
+    """Half the particles in a random order (see _check_permuted)."""
+    _check_permuted(host_lib, rng, dtype, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_host_compiled_cubic_kernels_permuted_order(host_lib, rng, dtype):
+    """The same with the cubic stencil: a box one node wider per axis."""
+    _check_permuted(host_lib, rng, dtype, 4)
 
 
 @pytest.mark.parametrize("d", [2, 3])
@@ -386,6 +422,19 @@ def test_host_compiled_kernels_boundary_band(host_lib, rng, d):
     stats = (None, torch.zeros(N_STATS, dtype=torch.int64))
     _check_kernels(host_lib, c, "fixed_corotated", torch.float64, stats=stats)
     assert fa.read_window_stats(stats[1])["overflow_blocks"] == 0
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_cubic_kernels_boundary_band(host_lib, rng, d):
+    """The clamped band with the cubic stencil, whose base floor(x/dx) - 1
+    clamps one node further in, Neo-Hookean."""
+    c = _inputs(d, torch.float64, rng)
+    x, dx, top = c["x"], c["dx"], c["res"][1] * c["dx"]
+    x[:, 0] += 0.1 * dx - x[:, 0].min()
+    x[:, 1] += top - 1.1 * dx - x[:, 1].max()
+    base = torch.floor(x / dx) - 1
+    assert bool((base[:, 0] < 0).any()) and bool((base[:, 1] + 3 > c["res"][1] - 1).any())
+    _check_kernels(host_lib, c, "neo_hookean", torch.float64, kernel="cubic")
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -412,10 +461,14 @@ def test_unsupported_dim_is_refused(host_lib):
     z = torch.zeros(1)
     p = z.data_ptr()
     res = cuda_lib.int_array((1, 1, 1))
-    assert host_lib.hot_fused_apply(0, 4, p, p, 1.0, res, *[p] * 7, DT, p, 1, 128, 0, None,
-                                    None) != 0
-    assert host_lib.hot_fused_apply(0, 3, p, p, 1.0, res, *[p] * 7, DT, p, 1, 100, 0,
+    assert host_lib.hot_fused_apply(0, 4, 3, p, p, 1.0, res, *[p] * 7, DT, p, 1, 128, 0,
                                     None, None) != 0
-    assert host_lib.hot_fused_linearize(7, 0, 3, p, p, 1.0, res, *[p] * 4, DT, 1, *[p] * 6,
-                                        1, 128, 0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, *[p] * 7, DT, p, 1, 100, 0,
+                                    None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 5, p, p, 1.0, res, *[p] * 7, DT, p, 1, 128, 0,
+                                    None, None) != 0
+    assert host_lib.hot_fused_linearize(7, 0, 3, 3, p, p, 1.0, res, *[p] * 4, DT, 1,
+                                        *[p] * 6, 1, 128, 0, None, None) != 0
+    assert host_lib.hot_fused_linearize(0, 0, 3, 2, p, p, 1.0, res, *[p] * 4, DT, 1,
+                                        *[p] * 6, 1, 128, 0, None, None) != 0
     assert host_lib.hot_bsr_spmv(0, 4, *[z.data_ptr()] * 4, 1, 125, None) != 0

@@ -1,9 +1,11 @@
-"""hot_tpu_torch numerics against hot_tpu: SVD, symmetric eigen, B-splines
-and the two constitutive models, on the same fp64 inputs (made with numpy).
+"""hot_tpu_torch numerics against hot_tpu: SVD, polar decomposition,
+symmetric eigen, B-splines and the four constitutive models, on the same
+fp64 inputs (made with numpy).
 
 Tolerance 1e-10, relative to the largest entry of the reference: both
 packages run the same algorithm in fp64, and differ only in the rounding of
-reductions and of analytic versus autodiff derivatives (~1e-15).
+reductions and of analytic versus autodiff derivatives (~1e-15). The
+Neo-Hookean and linear-corotated models and polar are held to 1e-12.
 """
 
 import jax
@@ -14,7 +16,7 @@ import torch
 
 from hot_tpu.models import constitutive as jcm
 from hot_tpu.ops import bspline as jbs
-from hot_tpu.ops.svd import eigh_sym as j_eigh_sym, svd as j_svd
+from hot_tpu.ops.svd import eigh_sym as j_eigh_sym, polar as j_polar, svd as j_svd
 from hot_tpu_torch.models import constitutive as tcm
 from hot_tpu_torch.ops import bspline as tbs
 from hot_tpu_torch.ops import svd as tsvd
@@ -54,6 +56,22 @@ def test_svd_matches_hot_tpu(rng, d):
 
 
 @pytest.mark.parametrize("d", [2, 3])
+def test_polar_matches_hot_tpu(rng, d):
+    """R proper and orthogonal, S symmetric (indefinite for the inverted
+    matrices), A = R S."""
+    F = matrices(rng, 64, d)
+    R, S = j_polar(jnp.asarray(F))
+    tR, tS = tsvd.polar(torch.from_numpy(F))
+    close(tR, R, 1e-12)
+    close(tS, S, 1e-12)
+    close(tR @ tS, F, 1e-12)
+    close(tS - tS.transpose(1, 2), np.zeros_like(F), 1e-12)
+    close(torch.linalg.det(tR), np.ones(F.shape[0]), 1e-12)
+    inverted = np.linalg.det(F) < 0
+    assert inverted.any() and bool((torch.linalg.eigvalsh(tS[inverted]).min(1).values < 0).all())
+
+
+@pytest.mark.parametrize("d", [2, 3])
 def test_eigh_sym_matches_hot_tpu(rng, d):
     M = rng.standard_normal((64, d, d))
     S = np.concatenate([M + M.transpose(0, 2, 1), np.broadcast_to(np.eye(d), (2, d, d))])
@@ -80,10 +98,12 @@ def test_bspline_matches_hot_tpu(rng, d):
                                   np.asarray(jbs.stencil_offsets(d)))
 
 
-@pytest.mark.parametrize("name", ["fixed_corotated", "stvk_hencky"])
+@pytest.mark.parametrize("name", ["fixed_corotated", "stvk_hencky", "neo_hookean",
+                                  "linear_corotated"])
 @pytest.mark.parametrize("d", [2, 3])
 def test_models_match_hot_tpu(rng, name, d):
     jmodel, tmodel = jcm.MODEL_REGISTRY[name], tcm.MODEL_REGISTRY[name]
+    tol = 1e-12 if name in ("neo_hookean", "linear_corotated") else TOL
     F = matrices(rng, 48, d)
     n = F.shape[0]
     mu_s, lam_s = jcm.lame_parameters(1e6, 0.3)
@@ -97,20 +117,20 @@ def test_models_match_hot_tpu(rng, name, d):
         P, ctx = jax.vmap(lambda f, m, l: jcm.stress_and_hessian(
             jmodel, f, m, l, project=project))(jF, jmu, jlam)
         tP, tctx = tcm.stress_and_hessian(tmodel, tF, tmu, tlam, project=project)
-        close(tP, P)
+        close(tP, P, tol)
         for field in ("U", "V", "A", "b_plus", "b_minus"):
-            close(getattr(tctx, field), getattr(ctx, field))
+            close(getattr(tctx, field), getattr(ctx, field), tol)
         dP = jax.vmap(jcm.apply_hessian)(ctx, jnp.asarray(dF))
-        close(tcm.apply_hessian(tctx, torch.from_numpy(dF)), dP)
+        close(tcm.apply_hessian(tctx, torch.from_numpy(dF)), dP, tol)
         hctx = jax.vmap(lambda f, m, l: jcm.hessian_context(
             jmodel, f, m, l, project=project))(jF, jmu, jlam)
         tA = tcm.hessian_context(tmodel, tF, tmu, tlam, project=project).A
-        close(tA, hctx.A)
+        close(tA, hctx.A, tol)
 
     psi = jax.vmap(lambda f, m, l: jcm.psi_from_F(jmodel, f, m, l))(jF, jmu, jlam)
-    close(tcm.psi_from_F(tmodel, tF, tmu, tlam), psi)
+    close(tcm.psi_from_F(tmodel, tF, tmu, tlam), psi, tol)
     P1 = jax.vmap(lambda f, m, l: jcm.first_piola(jmodel, f, m, l))(jF, jmu, jlam)
-    close(tcm.first_piola(tmodel, tF, tmu, tlam), P1)
+    close(tcm.first_piola(tmodel, tF, tmu, tlam), P1, tol)
 
 
 def test_lame_parameters_match():

@@ -43,9 +43,10 @@ def t2n(t):
     return t.detach().cpu().numpy()
 
 
-def objective_pair(scene_name, rng, model_name="fixed_corotated"):
+def objective_pair(scene_name, rng, model_name="fixed_corotated", kernel="quadratic"):
     """hot_tpu and port objectives over the same particles (F perturbed
-    with seeded noise), plus a random grid velocity for both.
+    with seeded noise) and transfer kernel, plus a random grid velocity for
+    both.
 
     Returns a namespace: jo, to (objectives), jmodel, tmodel, v (numpy grid
     velocity), x (numpy positions), res, dx."""
@@ -62,15 +63,15 @@ def objective_pair(scene_name, rng, model_name="fixed_corotated"):
     v = v_star + 0.3 * rng.standard_normal((n_nodes, d))
     proj = np.broadcast_to(np.eye(d), (n_nodes, d, d))
 
-    jst = jtr.particle_stencil(js.x, cfg.dx, res)
+    jst = jtr.particle_stencil(js.x, cfg.dx, res, kernel=kernel)
     jgm, _ = jtr.p2g_mass_momentum(jst, js.v, js.C, js.m, n_nodes)
     jo = jobj.make_objective(jcm.MODEL_REGISTRY[model_name], jst, js.F, js.V0, js.mu,
                              js.lam, jgm, jnp.asarray(v_star), jnp.asarray(proj), DT, cfg.dx)
-    tst = ttr.particle_stencil(ts.x, cfg.dx, res)
+    tst = ttr.particle_stencil(ts.x, cfg.dx, res, kernel=kernel)
     tgm, _ = ttr.p2g_mass_momentum(tst, ts.v, ts.C, ts.m, n_nodes)
     to = tobj.make_objective(tcm.MODEL_REGISTRY[model_name], tst, ts.F, ts.V0, ts.mu,
                              ts.lam, tgm, torch.from_numpy(v_star), torch.from_numpy(proj.copy()),
-                             DT, cfg.dx, ts.x, res)
+                             DT, cfg.dx, ts.x, res, kernel=kernel)
     return SimpleNamespace(jo=jo, to=to, jmodel=jcm.MODEL_REGISTRY[model_name],
                            tmodel=tcm.MODEL_REGISTRY[model_name], v=v,
                            x=np.asarray(js.x), res=res, dx=cfg.dx)

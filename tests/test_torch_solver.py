@@ -219,12 +219,17 @@ def test_unported_newton_options_raise(rng, option):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"grid_backend": "sparse"}, {"transfer_kernel": "cubic"},
-    {"solver.integrator": "explicit"}, {"solver.nonlinear": "lbfgs"},
-    {"transfer_kernel": "cubic", "solver.preconditioner": "multigrid"},
+    {"grid_backend": "sparse"}, {"transfer_kernel": "cubic", "solver.matrix_free": False},
+    {"solver.integrator": "explicit", "transfer_kernel": "cubic", "solver.matrix_free": False},
+    {"solver.nonlinear": "lbfgs", "grid_backend": "sparse"},
+    {"transfer_kernel": "cubic", "solver.preconditioner": "multigrid",
+     "solver.multigrid.assembled": True},
     {"solver.preconditioner": "multigrid", "solver.multigrid.assembled": True,
      "solver.multigrid.assembled_from_level": 1}])
 def test_unported_configs_raise(overrides):
+    """The sparse grid, the composed Galerkin level, and (as in hot_tpu, for
+    every integrator) operators assembled into the quadratic BSR under cubic
+    transfers are refused."""
     scene = tbuild("block_drop_2d", device="cpu", res=16)
     cfg = t_overrides(scene["cfg"], overrides)
     with pytest.raises(NotImplementedError):

@@ -7,7 +7,7 @@ from states carried across as numpy (fp64, CPU: the plain kernel versions).
     positions within 1e-10 of both tests/reference_mpm.py and hot_tpu.
   * twisting_bar_3d at 16^3 ppc=2, block-Jacobi PCG, 3 steps: identical
     Newton and CG counts per step, positions within 1e-9 of hot_tpu.
-  * one CLI run on the CPU.
+  * one CLI run on the CPU (bgeo frames and a checkpoint by default).
 """
 
 import dataclasses
@@ -25,6 +25,7 @@ from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.sim import Simulation as JSimulation
 from hot_tpu.sim.simulation import advance_one_step as j_advance
 from hot_tpu_torch import cli
+from hot_tpu_torch.native import read_bgeo
 from hot_tpu_torch.scenes import build_scene as tbuild
 from hot_tpu_torch.sim import Simulation as TSimulation
 from hot_tpu_torch.sim.simulation import advance_one_step as t_advance
@@ -101,10 +102,12 @@ def test_cli_runs_on_cpu(tmp_path):
     steps = [r for r in records if "step" in r]
     assert [r["step"] for r in steps] == [1, 2]
     assert json.loads((out / "config.json").read_text())["grid_res"] == [16, 16]
-    frame = np.load(out / "frame_00000.npz")
-    assert frame["x"].shape[1] == 2 and np.isfinite(frame["x"]).all()
-    assert sorted(os.listdir(out)) == ["config.json", "frame_00000.npz", "metrics.jsonl",
-                                       "timers.txt"]
+    # frames default to bgeo (2D padded to 3D), a checkpoint after every frame
+    x, v = read_bgeo(str(out / "frame_00000.bgeo"))
+    assert x.shape[1] == 3 and np.isfinite(x).all() and (x[:, 2] == 0).all()
+    np.testing.assert_array_equal(x[:, :2], np.load(out / "ckpt_00000.npz")["x"])
+    assert sorted(os.listdir(out)) == ["ckpt_00000.npz", "config.json", "frame_00000.bgeo",
+                                       "metrics.jsonl", "timers.txt"]
 
 
 def test_cli_refuses_missing_gpu(tmp_path, monkeypatch):

@@ -17,10 +17,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from hot_tpu_torch import native
+from hot_tpu_torch.io import frames
 from hot_tpu_torch.sim.state import FIELDS, ParticleState
 
-FRAME_WRITERS = {"bgeo": native.write_bgeo, "ply": native.write_ply, "vtk": native.write_vtk}
+FRAME_WRITERS = {"bgeo": frames.write_bgeo, "ply": frames.write_ply, "vtk": frames.write_vtk}
 
 
 def save_checkpoint(path: str, state: ParticleState, t: float, step_count: int):
@@ -41,7 +41,7 @@ def load_checkpoint(path: str, device="cpu",
 
 def save_frame(path: str, state: ParticleState):
     """The particles' positions and velocities for rendering, in the format
-    of the file's extension: bgeo, ply, vtk (``native``), else npz."""
+    of the file's extension: bgeo, ply, vtk (``io.frames``), else npz."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     ext = os.path.splitext(path)[1].lstrip(".").lower()
     x = state.x.detach().cpu().numpy()

@@ -1,11 +1,10 @@
 """Checkpoints, resume and render frames of hot_tpu_torch (io/checkpoint.py,
-native/, the CLI's --resume, --frame-format and --checkpoint-every),
+io/frames.py, the CLI's --resume, --frame-format and --checkpoint-every),
 against hot_tpu's io and native writers. Mirrors tests/test_native.py.
 
-  * the frame writers (g++-built copy of hot_tpu's native.cpp) write the
-    bytes of hot_tpu.native's and of the port's numpy writers, 2D and 3D,
-    with and without velocities; read_bgeo returns float32 x bit for bit;
-  * a failed build raises;
+  * the frame writers write the bytes of hot_tpu.native's, 2D and 3D, with
+    and without velocities; read_bgeo returns float32 x bit for bit and
+    refuses a file that is not a classic BGEO v5;
   * checkpoints carry every ParticleState field and the clock under
     hot_tpu's keys: one written by hot_tpu loads in the port and the other
     way round, bit for bit;
@@ -15,6 +14,7 @@ against hot_tpu's io and native writers. Mirrors tests/test_native.py.
 
 import dataclasses
 import os
+import struct
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,15 +24,16 @@ import torch
 from hot_tpu import native as jnative
 from hot_tpu.io import checkpoint as jckpt
 from hot_tpu.scenes import build_scene as jbuild
-from hot_tpu_torch import cli, native
+from hot_tpu_torch import cli
 from hot_tpu_torch.io import checkpoint as tckpt
+from hot_tpu_torch.io import frames
 from hot_tpu_torch.sim.state import FIELDS
 
 from test_torch_ref import carry_state, one_torch_thread, t2n  # noqa: F401
 
-WRITERS = {"bgeo": (native.write_bgeo, native.write_bgeo_plain, jnative.write_bgeo),
-           "ply": (native.write_ply, native.write_ply_plain, jnative.write_ply),
-           "vtk": (native.write_vtk, native.write_vtk_plain, jnative.write_vtk)}
+WRITERS = {"bgeo": (frames.write_bgeo, jnative.write_bgeo),
+           "ply": (frames.write_ply, jnative.write_ply),
+           "vtk": (frames.write_vtk, jnative.write_vtk)}
 
 
 @pytest.mark.parametrize("with_v", [True, False])
@@ -43,13 +44,13 @@ def test_frame_writers_match_hot_tpu(tmp_path, rng, fmt, d, with_v):
     x = rng.standard_normal((n, d)).astype(np.float32)
     v = rng.standard_normal((n, d)).astype(np.float32) if with_v else None
     files = []
-    for who, write in zip(("port", "plain", "hot_tpu"), WRITERS[fmt]):
+    for who, write in zip(("port", "hot_tpu"), WRITERS[fmt]):
         path = str(tmp_path / f"{who}.{fmt}")
         write(path, x, v)
         files.append(open(path, "rb").read())
-    assert files[0] == files[1] == files[2]
+    assert files[0] == files[1]
     if fmt == "bgeo":
-        x2, v2 = native.read_bgeo(str(tmp_path / "port.bgeo"))
+        x2, v2 = frames.read_bgeo(str(tmp_path / "hot_tpu.bgeo"))
         assert x2.dtype == np.float32 and x2.shape == (n, 3)
         np.testing.assert_array_equal(x2[:, :d], x)
         np.testing.assert_array_equal(x2[:, d:], 0.0)
@@ -59,21 +60,13 @@ def test_frame_writers_match_hot_tpu(tmp_path, rng, fmt, d, with_v):
             assert v2 is None
 
 
-def test_native_build_failures_raise(tmp_path, monkeypatch):
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "_LIB", None)
-    monkeypatch.setattr(native.shutil, "which", lambda name: None)
-    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
-        native.write_bgeo(str(tmp_path / "f.bgeo"), np.zeros((2, 3), np.float32))
-    monkeypatch.undo()
-    bad = tmp_path / "bad.cpp"
-    bad.write_text("this is not C++\n")
-    monkeypatch.setattr(native, "SOURCE", bad)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "_LIB", None)
-    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-        native.write_ply(str(tmp_path / "f.ply"), np.zeros((2, 3), np.float32))
-    assert not (tmp_path / "f.ply").exists()
+@pytest.mark.parametrize("header, match", [(b"PLY\n", "not a classic BGEO"),
+                                           (b"BgeoV" + struct.pack(">i", 4), "version 4")])
+def test_read_bgeo_refuses_other_files(tmp_path, header, match):
+    path = tmp_path / "f.bgeo"
+    path.write_bytes(header + bytes(64))
+    with pytest.raises(ValueError, match=match):
+        frames.read_bgeo(str(path))
 
 
 def _assert_states_equal(got, want):
@@ -144,7 +137,7 @@ def test_cli_resume_is_bitwise(tmp_path):
     a, b = (tckpt.load_checkpoint(str(p / "ckpt_00001.npz")) for p in (full, resumed))
     _assert_states_equal(a[0], b[0])
     assert a[1:] == b[1:] and a[2] > 0
-    x, _ = native.read_bgeo(str(full / "frame_00001.bgeo"))
+    x, _ = frames.read_bgeo(str(full / "frame_00001.bgeo"))
     np.testing.assert_array_equal(x[:, :2], t2n(a[0].x).astype(np.float32))
 
 

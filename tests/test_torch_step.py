@@ -25,7 +25,7 @@ from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.sim import Simulation as JSimulation
 from hot_tpu.sim.simulation import advance_one_step as j_advance
 from hot_tpu_torch import cli
-from hot_tpu_torch.native import read_bgeo
+from hot_tpu_torch.io.frames import read_bgeo
 from hot_tpu_torch.scenes import build_scene as tbuild
 from hot_tpu_torch.sim import Simulation as TSimulation
 from hot_tpu_torch.sim.simulation import advance_one_step as t_advance

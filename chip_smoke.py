@@ -77,6 +77,35 @@ Phases, each printing one JSON line:
               checkpoint each; resumed from the first checkpoint, frame 1
               within 1e-5 dx of the uninterrupted run's; read_bgeo of a
               frame equal to its checkpoint's x bit for bit
+  15 kernels_sparse  both particle kernels on the compact node ids of the
+              128^3 bar's tile grid (F perturbed by 0.1), fp32 and fp64,
+              against their plain versions on the same tile grid and against
+              the dense instance on the same values (compact_to_dense); the
+              dump row untouched; device ms per launch of the compact and the
+              dense instance, window counters, the bound from the touched
+              nodes and the tiles' lookup entries
+  16 sparse   the 128^3 bar from one loaded state, dense against sparse
+              backend, block-Jacobi and config 3, 6 steps each: converged,
+              no dt retry, launch counters as derived; each block-Jacobi
+              step again on the sparse grid from the dense run's state
+              before it: equal Newton, CG within 2 and x within 1e-4 dx;
+              steps/s, peak
+              memory, active tiles, compact against dense nodes, config 3's
+              compact/dense levels
+  17 composed the composed Galerkin level 1 against spgemm.rap of the
+              assembled fine operator (64^3, fp64, within 1e-10); then the
+              128^3 bar, config 3 against config 3 with
+              assembled_from_level=1 (matrix-free finest level), 3 steps
+              each (fp64): CG per Newton, build ms per Newton split into
+              composed assembly, RAP and quadrature assembly, peak memory,
+              launches as derived; then one fp32 step of the composed
+              configuration, recorded (Newton, dt retries, convergence)
+  18 scale256 the 256^3 bar (3.19 M particles) on the sparse grid
+              (tile_capacity 16384): config 3 with the composed level 1
+              below a matrix-free finest level, 2 steps, then 2 block-Jacobi
+              steps: converged, no dt retry; Newton, CG, build ms per
+              Newton, steps/s, peak memory and the hierarchy's compact and
+              dense levels
 Phase 3 also holds both particle kernels with the cubic stencil (4 nodes per
 axis, every model) and the Neo-Hookean and linear-corotated linearize
 against their plain versions, phase 3b times the cubic kernels at 64^3 and
@@ -718,19 +747,31 @@ def counted(fn):
     return out, {k: m.launches for k, m in mods.items()}
 
 
-def mg_spmv_launches(mgc, newton, cg):
+def mg_spmv_launches(mgc, newton, cg, first_assembled=0):
     """(per build, per V-cycle, total) bsr_spmv launches of config 3, from
-    solver/multigrid.py: every level is assembled, so each SpMV is one
-    launch. Per build (one per Newton iteration that solves): power_iters
-    for each Chebyshev level above the coarsest. Per V-cycle (one per CG
-    iteration plus one for the initial residual): on each level above the
-    coarsest, pre- and post-smoothing apply the operator pre_smooth*order and
-    post_smooth*order times, and the level residual once; the coarsest level
-    is a Cholesky solve."""
-    smoothed = mgc.levels - 1
+    solver/multigrid.py: every level from first_assembled on is assembled,
+    so each SpMV is one launch. Per build (one per Newton iteration that
+    solves): power_iters for each assembled Chebyshev level above the
+    coarsest. Per V-cycle (one per CG iteration plus one for the initial
+    residual): on each assembled level above the coarsest, pre- and
+    post-smoothing apply the operator pre_smooth*order and post_smooth*order
+    times, and the level residual once; the coarsest level is a Cholesky
+    solve. A matrix-free level above runs the same counts through
+    fused_apply (composed_apply_launches)."""
+    smoothed = mgc.levels - 1 - first_assembled
     per_build = mgc.power_iters * smoothed
     per_vcycle = smoothed * ((mgc.pre_smooth + mgc.post_smooth) * mgc.chebyshev_order + 1)
     return per_build, per_vcycle, per_build * sum(newton) + per_vcycle * (sum(cg) + sum(newton))
+
+
+def composed_apply_launches(mgc, newton, cg):
+    """fused_apply launches of config 3 with a matrix-free level 0 above the
+    composed level 1: the outer CG's sum(cg) + sum(newton), and level 0's
+    power_iters per build and (pre_smooth + post_smooth) * chebyshev_order
+    smoother applications plus one residual per V-cycle."""
+    solves = sum(cg) + sum(newton)
+    per_vcycle = (mgc.pre_smooth + mgc.post_smooth) * mgc.chebyshev_order + 1
+    return solves + mgc.power_iters * sum(newton) + per_vcycle * solves
 
 
 def expected_launches(newton, cg, minres=False, mgc=None):
@@ -810,6 +851,231 @@ def card_against_cpu(overrides, model_name=None):
                          converged=(g.converged, c.converged),
                          x_diff_over_dx=dxmax / base["cfg"].dx))
     return base["state"].n, rows
+
+
+# ---- the sparse tile grid and the composed Galerkin level
+
+SPARSE_RES = 128
+SCALE_RES = 256
+SCALE_TILES = 16384
+
+
+def compact_inputs(c, rng):
+    """Input set c with its grid vectors v and w on the compact nodes of its
+    particles' tile grid; returns the grid."""
+    from hot_tpu_torch.grid import sparse
+
+    x = c["x_soa"].T.contiguous()
+    tg = sparse.build_tile_grid(x, c["dx"], c["res"], capacity=10 ** 9)
+    dtype = c["v"].dtype
+    c["v"], c["w"] = (torch.as_tensor(rng.standard_normal((tg.n_cnodes, c["d"])), dtype=dtype,
+                                      device="cuda") for _ in range(2))
+    c["tgrid"] = tg
+    c["st"] = sparse.sparse_stencil(x, c["dx"], tg)
+    return tg
+
+
+def check_sparse_kernels(c, timing):
+    """Both particle kernels on compact node ids (input set c from
+    compact_inputs) against their plain versions on the same tile grid, and
+    against the dense instance on the same values scattered onto the dense
+    grid (compact_to_dense); with `timing`, each compact and dense kernel's
+    device ms per launch, the plain versions' ms, the window counters of
+    the compact launches and the bounds from this run's inputs: the touched
+    nodes, and for the compact kernels the lookup entries of their tiles."""
+    from hot_tpu_torch.grid import sparse
+    from hot_tpu_torch.ops import fused_apply as fa
+    from hot_tpu_torch.ops import fused_linearize as fl
+
+    tg, d, dtype = c["tgrid"], c["d"], c["v"].dtype
+    lin = lin_args(c) + (tg,)
+    dense_v = sparse.compact_to_dense(tg, c["v"])
+    dense_lin = (dense_v,) + lin_args(c)[1:]
+    with WindowStats() as ws:
+        got = fl.fused_linearize_cuda(*lin)
+        want = fl.fused_linearize_plain(*lin)
+        apply = (c["w"],) + apply_args(c, want[1:])[1:] + (tg,)
+        got_df = fa.fused_apply_cuda(*apply)
+        windows = ws.read()
+    want_df = fa.fused_apply_plain(*apply)
+    dense_f = fl.fused_linearize_cuda(*dense_lin)[0]
+    dense_apply = (sparse.compact_to_dense(tg, c["w"]),) + apply_args(c, want[1:])[1:]
+    dense_df = fa.fused_apply_cuda(*dense_apply)
+    errs = {"lin_f": rel_err(got[0], want[0]), "lin_A": rel_err(got[3], want[3]),
+            "lin_b_plus": rel_err(got[4], want[4]), "lin_b_minus": rel_err(got[5], want[5]),
+            "apply_df": rel_err(got_df, want_df),
+            "lin_f_vs_dense": rel_err(sparse.compact_to_dense(tg, got[0]), dense_f),
+            "apply_df_vs_dense": rel_err(sparse.compact_to_dense(tg, got_df), dense_df),
+            "dump_row": (float(got[0][tg.dump].abs().max() + got_df[tg.dump].abs().max()),) * 2}
+    tol = TOL[dtype]
+    limits = {k: tol["apply"] if "apply" in k else tol["linearize"] for k in errs}
+    limits["dump_row"] = 0.0
+    bad = {k: v[1] for k, v in errs.items() if not v[1] <= limits[k]}
+    out = dict(tiles=tg.n_active, compact_nodes=tg.n_cnodes,
+               dense_nodes=math.prod(c["res"]), particles=c["n"], windows=windows,
+               rel_err={k: v[1] for k, v in errs.items()},
+               max_abs_err={k: v[0] for k, v in errs.items()}, limits=limits)
+    if timing:
+        touched = int(torch.unique(c["st"].node_ids).numel())
+        calls = {("fused_linearize", "compact"): lambda: fl.fused_linearize_cuda(*lin),
+                 ("fused_apply", "compact"): lambda: fa.fused_apply_cuda(*apply),
+                 ("fused_linearize", "dense"): lambda: fl.fused_linearize_cuda(*dense_lin),
+                 ("fused_apply", "dense"): lambda: fa.fused_apply_cuda(*dense_apply)}
+        plain = {"fused_linearize": lambda: fl.fused_linearize_plain(*lin),
+                 "fused_apply": lambda: fa.fused_apply_plain(*apply)}
+        clamped = clamp_share(c)
+        for (name, grid), fn in calls.items():
+            nbytes = particle_kernel_bytes(name, c["n"], touched, d, 4)
+            if grid == "compact":
+                nbytes += 4 * tg.n_active
+            flops = c["n"] * (FLOPS_PER_PARTICLE[name, 3]
+                              + (CLAMP_FLOPS * clamped if name == "fused_linearize" else 0))
+            row = dict(bytes=nbytes, flops=flops)
+            row["ms"], row["ms_source"] = device_ms(fn, 50, name + "_kernel")
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+            if grid == "compact":
+                row["plain_ms"] = cuda_time_ms(plain[name], 3)
+            out[f"{name}_{grid}"] = row
+    return out, bad
+
+
+def sparse_run(scene, cfg, start, t_start, steps, record=False):
+    """`steps` steps of one configuration from a saved state: (the
+    Simulation, StepStats, seconds, launches, MG build ms per build, and with
+    `record` the (state, t) before each step)."""
+    from hot_tpu_torch.sim import Simulation
+    from hot_tpu_torch.solver import multigrid as mg_mod
+
+    sim = Simulation(cfg, start, scene["model"], scene["colliders"])
+    sim.t = t_start
+    before = []
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = []
+        for _ in range(steps):
+            if record:
+                before.append((sim.state, sim.t))
+            stats.append(sim.step(DT))
+        torch.cuda.synchronize()
+        return stats, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with BuildTimer(mg_mod) as bt:
+        (stats, seconds), launches = counted(run)
+    return sim, stats, seconds, launches, bt.ms(), before
+
+
+class ComposedTimer:
+    """CUDA-event ms of each composed Galerkin assembly, RAP and quadrature
+    assembly inside the multigrid builds (read after the steps)."""
+
+    def __enter__(self):
+        from hot_tpu_torch.ops import bsr, composed, spgemm
+
+        # multigrid calls these through its module references, so it calls
+        # the patched attributes
+        self.events = {"composed": [], "rap": [], "quadrature": []}
+        self.patched = [(composed, "assemble_composed_galerkin", "composed"),
+                        (spgemm, "rap", "rap"), (bsr, "assemble_hessian", "quadrature")]
+        self.orig = []
+        for mod, name, key in self.patched:
+            fn = getattr(mod, name)
+            self.orig.append(fn)
+            setattr(mod, name, self._timed(fn, key))
+        return self
+
+    def _timed(self, fn, key):
+        def timed(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events[key].append((start, end))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.patched, self.orig):
+            setattr(mod, name, fn)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: [a.elapsed_time(b) for a, b in v] for k, v in self.events.items()}
+
+
+def hierarchy_split(sim):
+    """Per level of the step's multigrid hierarchy: compact or dense, and its
+    node count (compact nodes, or the dense grid's)."""
+    from hot_tpu_torch.grid import sparse
+    from hot_tpu_torch.solver import multigrid as mg_mod
+
+    cfg = sim.cfg
+    mgc = cfg.solver.multigrid
+    res = tuple(cfg.grid_res[:3])
+    tg = (sparse.build_tile_grid(sim.state.x, cfg.dx, res, cfg.tile_capacity)
+          if cfg.grid_backend == "sparse" else None)
+    mgs = mg_mod.build_static(sim.state.x, sim.state.m, res, cfg.dx, mgc.levels,
+                              torch.zeros(tg.n_cnodes if tg else math.prod(res), dtype=torch.bool,
+                                          device="cuda"), sim.state.x.dtype,
+                              tgrid=tg, tile_capacity=cfg.tile_capacity,
+                              dense_switch=mgc.sparse_dense_switch)
+    return [dict(level=l, res=lv.res[0], compact=lv.tgrid is not None,
+                 nodes=int(lv.grid_m.shape[0]), tiles=lv.tgrid.n_active if lv.tgrid else None,
+                 active_nodes=int(lv.active.sum()))
+            for l, lv in enumerate(mgs.levels)]
+
+
+def composed_against_rap(rng):
+    """On the 64^3 bar in fp64, at one Newton state (F perturbed by 0.1):
+    the composed level-1 operator against spgemm.rap of the assembled fine
+    operator, on the RAP operator's rows and columns (the composed level
+    also has rows for the nodes of its active tiles that carry no mass);
+    relative to the RAP operator's largest entry."""
+    from hot_tpu_torch.ops import composed as comp_mod
+    from hot_tpu_torch.ops import transfer
+    from hot_tpu_torch.scenes import build_scene
+    from hot_tpu_torch.sim import objective as obj_mod
+    from hot_tpu_torch.solver import multigrid as mg_mod
+    from hot_tpu_torch.utils.config import MultigridConfig
+
+    dtype = torch.float64
+    scene = build_scene("twisting_bar_3d", device="cuda", dtype=dtype, res=64, ppc=8)
+    state, cfg = scene["state"], scene["cfg"]
+    res = tuple(cfg.grid_res[:3])
+    n_nodes = transfer.n_nodes_of(res)
+    F = state.F + torch.as_tensor(0.1 * rng.standard_normal((state.n, 3, 3)), dtype=dtype,
+                                  device="cuda")
+    st = transfer.particle_stencil(state.x, cfg.dx, res)
+    grid_m = transfer.scatter_sum(st.node_ids, st.wn * state.m[:, None], n_nodes)
+    eye = torch.eye(3, dtype=dtype, device="cuda")
+    obj = obj_mod.make_objective(scene["model"], st, F, state.V0, state.mu, state.lam, grid_m,
+                                 torch.zeros((n_nodes, 3), dtype=dtype, device="cuda"),
+                                 eye.expand(n_nodes, 3, 3), DT, cfg.dx, state.x, res)
+    _, hess = obj_mod.linearize(scene["model"], obj, obj.v_star)
+    mcfg = MultigridConfig(levels=2, coarse_solver="cg", assembled=True)
+    cons = torch.zeros(n_nodes, dtype=torch.bool, device="cuda")
+    mats = {}
+    seconds = {}
+    for label, first in (("rap", 0), ("composed", 1)):
+        mgs = mg_mod.build_static(state.x, state.m, res, cfg.dx, 2, cons, dtype,
+                                  assembled_from=first, composed=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mats[label] = mg_mod.build_precond(mgs, F, hess, state.V0, DT, mcfg, 3).mats[1]
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+    rap, comp = mats["rap"], mats["composed"]
+    rows = comp.row_of[rap.node_of]
+    assert bool((rows >= 0).all()) and comp.half == rap.half == comp_mod.structure_half(1)
+    ok = rap.col_row >= 0
+    assert bool((comp.col_row[rows] >= 0)[ok].all())
+    err, rel = rel_err(comp.vals[rows][ok], rap.vals[ok])
+    return dict(scene="twisting_bar_3d", res=64, dtype=str(dtype), rows_rap=rap.n_rows,
+                rows_composed=comp.n_rows, half=comp.half, max_abs_err=err, rel_err=rel,
+                limit=1e-10, build_s=seconds)
 
 
 def main(argv=None):
@@ -1375,6 +1641,205 @@ def main(argv=None):
     assert np.isfinite(x_full).all() and v_full is not None and steps > 0, row
     assert row["resume_x_diff_over_dx"] <= RESUME_TOL, row
     lap("io")
+
+    # ---- 15 kernels_sparse: both particle kernels on the compact node ids of
+    # the 128^3 bar's tile grid (F perturbed by 0.1), against their plain
+    # versions and against the dense instance
+    sparse_summary = {}
+    for dtype in (torch.float32, torch.float64):
+        case = kernel_inputs("twisting_bar_3d", "fixed_corotated", dtype, rng, SPARSE_RES)
+        compact_inputs(case, rng)
+        row, bad = check_sparse_kernels(case, timing=dtype == torch.float32)
+        emit("kernels_sparse", card=card, scene="twisting_bar_3d", res=SPARSE_RES,
+             dtype=str(dtype), **row)
+        if bad:
+            raise AssertionError(f"compact-id kernel disagrees: {bad}")
+        if dtype == torch.float32:
+            sparse_summary = row
+        del case
+    torch.cuda.empty_cache()
+    lap("kernels_sparse")
+
+    # ---- 16 sparse: the 128^3 bar, dense against sparse backend under
+    # block-Jacobi and config 3, 6 steps each from one loaded state; then
+    # each block-Jacobi step again on the sparse grid from the dense run's
+    # state before it (6 fp32 steps apart, the two runs' atomics orders
+    # alone part their trajectories, as two dense runs part)
+    scene = build_scene("twisting_bar_3d", device="cuda", res=SPARSE_RES, ppc=8)
+    sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
+    run_steps(sim, 2, DT)
+    start, t_start = sim.state, sim.t
+    del sim
+    sparse_cfg = {"grid_backend": "sparse", "tile_capacity": 4096}
+    sparse_launches = {}
+    for label in ("block_jacobi", "config 3"):
+        runs = {}
+        for backend in ("dense", "sparse"):
+            cfg = scene["cfg"] if label == "block_jacobi" else config3(scene["cfg"])
+            if backend == "sparse":
+                cfg = config_from_overrides(cfg, sparse_cfg)
+            sim, stats, seconds, run_launches, build_ms, before = sparse_run(
+                scene, cfg, start, t_start, 6, record=backend == "dense")
+            row = step_record(sim, stats, seconds)
+            mgc = cfg.solver.multigrid if label == "config 3" else None
+            want = expected_launches(row["newton"], row["cg"], mgc=mgc)
+            row.update(preconditioner=label, backend=backend, launches=run_launches,
+                       launches_expected=want, active_tiles=[s.active_tiles for s in stats],
+                       mg_build_ms_per_newton=float(np.mean(build_ms)) if build_ms else None)
+            if backend == "sparse":
+                row["compact_nodes"] = 64 * stats[-1].active_tiles + 1
+                row["hierarchy"] = hierarchy_split(sim) if mgc else None
+                sparse_launches[label] = run_launches
+            row["dense_nodes"] = SPARSE_RES ** 3
+            emit("sparse", card=card, scene="twisting_bar_3d", res=SPARSE_RES, **row)
+            assert bool(torch.isfinite(sim.state.x).all()), row
+            assert all(s.converged for s in stats) and sim.retry_count == 0, row
+            assert run_launches == want, row
+            runs[backend] = (sim.state.x, stats, before + [(sim.state, sim.t)])
+            del sim
+        (xd, sd, dense_states), (xs, ss, _) = runs["dense"], runs["sparse"]
+        diff = float((xd - xs).abs().max()) / scene["cfg"].dx
+        pairs = [((a.newton_iters, b.newton_iters), (a.cg_iters, b.cg_iters))
+                 for a, b in zip(sd, ss)]
+        # Block-Jacobi is the same operator on both grids. Config 3's coarse
+        # levels are not: a coarse node is constrained when over 25% of its
+        # restriction weight comes from constrained fine nodes, and the dense
+        # grid counts the weight of inactive fine nodes (the clamps' empty
+        # nodes) that the tile grid does not hold, as hot_tpu's two backends
+        # do; so config 3 is held to convergence and its launches, and its
+        # counts and x are recorded
+        exact = label == "block_jacobi"
+        stepwise = []
+        if exact:
+            cfg = config_from_overrides(scene["cfg"], sparse_cfg)
+            for k, stats_k in enumerate(sd):
+                (state_k, t_k), (after, _) = dense_states[k], dense_states[k + 1]
+                sim = Simulation(cfg, state_k, scene["model"], scene["colliders"])
+                sim.t = t_k
+                st = sim.step(DT)
+                stepwise.append(dict(newton=(stats_k.newton_iters, st.newton_iters),
+                                     cg=(stats_k.cg_iters, st.cg_iters),
+                                     x_diff_over_dx=float((after.x - sim.state.x).abs().max())
+                                     / scene["cfg"].dx))
+                del sim
+        emit("sparse", preconditioner=label, trajectories=pairs, x_diff_over_dx=diff,
+             dense_against_sparse_per_step=stepwise,
+             limits=dict(newton="equal", cg_diff=2, x_diff_over_dx=X_TOL) if exact else None)
+        for r in stepwise:
+            assert r["newton"][0] == r["newton"][1], stepwise
+            assert abs(r["cg"][0] - r["cg"][1]) <= 2 and r["x_diff_over_dx"] <= X_TOL, stepwise
+        del runs
+    del start
+    torch.cuda.empty_cache()
+    lap("sparse")
+
+    # ---- 17 composed: the composed level-1 operator against the RAP of the
+    # assembled fine operator (64^3, fp64); then 128^3 dense, config 3
+    # against config 3 with assembled_from_level=1 (composed level 1 below a
+    # matrix-free finest level), 3 steps each from one loaded state, in
+    # fp64: in fp32 the matrix-free finest level's diagonal floor
+    # (solver/multigrid.py:_floor_fp32_diag, hot_tpu's) stalls Newton on the
+    # bar (ROADMAP queue C; PERF.md, PR 6)
+    row = composed_against_rap(rng)
+    emit("composed", card=card, **row)
+    assert row["rel_err"] <= row["limit"], row
+    torch.cuda.empty_cache()
+    scene = build_scene("twisting_bar_3d", device="cuda", res=SPARSE_RES, ppc=8,
+                        dtype=torch.float64)
+    sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
+    run_steps(sim, 2, DT)
+    start, t_start = sim.state, sim.t
+    del sim
+    for label, extra in (("config 3", {}),
+                         ("config 3, composed level 1", {
+                             "solver.multigrid.assembled_from_level": 1})):
+        cfg = config_from_overrides(config3(scene["cfg"]), extra)
+        with ComposedTimer() as ct, Attempts() as att:
+            sim, stats, seconds, run_launches, build_ms, _ = sparse_run(scene, cfg, start,
+                                                                        t_start, 3)
+        parts = ct.ms()
+        row = step_record(sim, stats, seconds)
+        mgc = cfg.solver.multigrid
+        # every attempt's launches, a retried one's too
+        newton_att = [a.newton_iters for _, a in att.stats]
+        cg_att = [a.cg_iters for _, a in att.stats]
+        want = expected_launches(newton_att, cg_att, mgc=mgc)
+        if extra:
+            want.update(fused_apply=composed_apply_launches(mgc, newton_att, cg_att),
+                        bsr_spmv=mg_spmv_launches(mgc, newton_att, cg_att, 1)[2])
+        newton_all = sum(newton_att)
+        row.update(config=label, launches=run_launches, launches_expected=want,
+                   mg_build_ms_per_newton=float(np.mean(build_ms)) if build_ms else None,
+                   build_ms_split_per_newton={k: sum(v) / max(newton_all, 1)
+                                              for k, v in parts.items()},
+                   builds=dict((k, len(v)) for k, v in parts.items()))
+        emit("composed", card=card, scene="twisting_bar_3d", res=SPARSE_RES,
+             dtype=str(torch.float64), **row)
+        assert bool(torch.isfinite(sim.state.x).all()), row
+        assert all(s.converged for s in stats) and sim.retry_count == 0, row
+        assert run_launches == want, row
+        if extra:
+            assert len(parts["composed"]) == newton_all and not parts["quadrature"], row
+        del sim
+    del start
+    # the composed configuration in fp32, one step from the fp32 loaded
+    # state: recorded (Newton, dt retries, convergence), held only to a finite
+    # state, as phase mg's default multigrid in fp32
+    scene = build_scene("twisting_bar_3d", device="cuda", res=SPARSE_RES, ppc=8)
+    sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
+    run_steps(sim, 2, DT)
+    cfg = config_from_overrides(config3(scene["cfg"]), {"solver.multigrid.assembled_from_level": 1})
+    with Attempts() as att:
+        sim, stats, seconds, run_launches, _, _ = sparse_run(scene, cfg, sim.state, sim.t, 1)
+    row = step_record(sim, stats, seconds)
+    row.update(config="config 3, composed level 1", dtype=str(torch.float32),
+               cn_residual=[s.cn_residual for s in stats], retried_attempts=att.retried(stats))
+    emit("composed", card=card, scene="twisting_bar_3d", res=SPARSE_RES, **row)
+    assert bool(torch.isfinite(sim.state.x).all()), row
+    del sim, scene
+    torch.cuda.empty_cache()
+    lap("composed")
+
+    # ---- 18 scale256: the 256^3 bar (3.19 M particles) on the sparse grid:
+    # 4-level MG with the composed Galerkin level 1 below a matrix-free
+    # finest level, Chebyshev, direct coarse solve, 2 steps; then 2
+    # block-Jacobi steps on the same sparse grid; fp64, as phase composed
+    scene = build_scene("twisting_bar_3d", device="cuda", res=SCALE_RES, ppc=8,
+                        dtype=torch.float64)
+    start, t_start = scene["state"], 0.0
+    scale_cfg = {"grid_backend": "sparse", "tile_capacity": SCALE_TILES,
+                 "solver.multigrid.assembled_from_level": 1}
+    for label in ("config 3, composed level 1", "block_jacobi"):
+        cfg = (config_from_overrides(config3(scene["cfg"]), scale_cfg) if label != "block_jacobi"
+               else config_from_overrides(scene["cfg"], {
+                   k: v for k, v in scale_cfg.items() if not k.startswith("solver")}))
+        with ComposedTimer() as ct:
+            sim, stats, seconds, run_launches, build_ms, _ = sparse_run(scene, cfg, start,
+                                                                        t_start, 2)
+        row = step_record(sim, stats, seconds)
+        parts = ct.ms()
+        row.update(config=label, launches=run_launches, active_tiles=[s.active_tiles
+                                                                      for s in stats],
+                   compact_nodes=64 * stats[-1].active_tiles + 1, dense_nodes=SCALE_RES ** 3,
+                   mg_build_ms_per_newton=float(np.mean(build_ms)) if build_ms else None,
+                   build_ms_split_per_newton={k: sum(v) / max(sum(row["newton"]), 1)
+                                              for k, v in parts.items()})
+        if label != "block_jacobi":
+            row["hierarchy"] = hierarchy_split(sim)
+            switch = 2 * SCALE_TILES * 4 ** 3
+            # hot_tpu's rule: level 0 compact, a coarser level while its
+            # dense node count is above the switch
+            assert [h["compact"] for h in row["hierarchy"]] == [
+                l == 0 or h["res"] ** 3 > switch for l, h in enumerate(row["hierarchy"])], row
+        emit("scale256", card=card, scene="twisting_bar_3d", res=SCALE_RES,
+             dtype=str(torch.float64), **row)
+        assert bool(torch.isfinite(sim.state.x).all()), row
+        assert all(s.converged for s in stats) and sim.retry_count == 0, row
+        start, t_start = sim.state, sim.t
+        del sim
+    del scene, start
+    torch.cuda.empty_cache()
+    lap("scale256")
     emit("runtime", seconds=laps, total_seconds=sum(laps.values()))
 
     spmv = summary["spmv"]
@@ -1395,11 +1860,26 @@ def main(argv=None):
                 "bound_ms": row[name]["bound_ms"], "bound_by": row[name]["bound_by"],
                 "library_ms": None}
 
+    def compact_row(name):
+        """The compact-id instance: launches on the sparse backend's
+        block-Jacobi run (phase sparse), error and times at 128^3 (fp32)."""
+        row = sparse_summary[f"{name}_compact"]
+        err = sparse_summary["max_abs_err"]["lin_f" if name == "fused_linearize" else "apply_df"]
+        return {"name": f"{name}_compact", "route": "cuda",
+                "source": f"hot_tpu_torch/csrc/{name}.cu",
+                "replaces": {"fused_linearize": "hot_tpu/ops/pallas_linearize.py:374",
+                             "fused_apply": "hot_tpu/ops/pallas_apply.py:143"}[name],
+                "launches": sparse_launches["block_jacobi"][name], "max_abs_err": err,
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
         particle_row("fused_linearize", "quadratic"),
         particle_row("fused_apply", "quadratic"),
         particle_row("fused_linearize", "cubic"),
         particle_row("fused_apply", "cubic"),
+        compact_row("fused_linearize"),
+        compact_row("fused_apply"),
         {"name": "bsr_spmv", "route": "cuda", "source": "hot_tpu_torch/csrc/bsr_spmv.cu",
          "replaces": "hot_tpu/ops/bsr_tiled.py:387",
          "launches": mg_counts["bsr_spmv"], "max_abs_err": spmv["max_abs_err"],

@@ -7,17 +7,23 @@ device the tensors live on; on CPU tensors the same functions run their
 plain PyTorch versions. Module names follow ``hot_tpu`` so each function's
 counterpart is easy to find:
 
+  grid      the block-sparse tile grid and its compact node ids (sparse)
   ops       B-splines, SVD, transfers; fused_apply / fused_linearize /
             bsr_spmv (the CUDA kernels, counterparts of pallas_apply /
-            pallas_linearize / bsr_tiled.spmv_T); BSR assembly and the
-            Galerkin RAP (bsr, spgemm)
-  models    fixed-corotated and StVK-Hencky in singular-value space; the
-            von Mises, snow and Drucker-Prager return maps
+            pallas_linearize / bsr_tiled.spmv_T), on the dense grid or on
+            compact node ids; BSR assembly, the Galerkin RAP and the composed
+            Galerkin level (bsr, spgemm, composed)
+  models    fixed-corotated, StVK-Hencky, Neo-Hookean and linear corotated
+            in singular-value space; the von Mises, snow and Drucker-Prager
+            return maps
   solver    projected CG and MINRES, inexact Newton with optional line
-            search, node-embedding multigrid
+            search, L-BFGS, node-embedding multigrid on dense and compact
+            levels
+
+Multi-GPU (hot_tpu.parallel) is not ported: a device mesh raises.
   sim       state, seeding, colliders, the objective, the time step,
             conservation queries and the finite-difference check
-  io        OBJ meshes and sampling inside them
+  io        checkpoints, render frames, OBJ meshes and sampling inside them
   scenes    hot_tpu's eleven scenes and their procedural mesh asset
   utils     config tree, metrics, timers
 """

@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render frame format (bgeo: partio's classic Houdini format)")
     p.add_argument("--checkpoint-every", type=int, default=1, metavar="FRAMES",
                    help="write a checkpoint every N frames (0 = never)")
-    p.add_argument("--max-steps", type=int, default=0, help="stop after N steps (0 = off)")
+    p.add_argument("--max-steps", type=int, default=0,
+                   help="stop after the frame in which the step count reaches N (0 = off)")
     p.add_argument("--model", default=None,
                    choices=["fixed_corotated", "stvk_hencky", "neo_hookean", "linear_corotated"],
                    help="constitutive model in place of the scene's")
@@ -112,7 +113,7 @@ def main(argv=None):
     try:
         for frame in range(start_frame, args.frames):
             t0 = time.perf_counter()
-            sim.advance_frame(max_steps=args.max_steps)
+            sim.advance_frame()
             save_frame(os.path.join(out_dir, f"frame_{frame:05d}.{args.frame_format}"),
                        sim.state)
             if args.checkpoint_every and (frame + 1) % args.checkpoint_every == 0:

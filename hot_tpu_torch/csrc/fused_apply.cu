@@ -27,7 +27,7 @@
 
 namespace {
 
-template <typename T, int D, int SW>
+template <typename T, int D, int SW, bool Tiled>
 __global__ void __launch_bounds__(hot::kMaxThreads)
 fused_apply_kernel(const T* __restrict__ w, const T* __restrict__ x, T dx, hot::Grid<D> grid,
                    const T* __restrict__ Fm, const T* __restrict__ Um,
@@ -39,11 +39,12 @@ fused_apply_kernel(const T* __restrict__ w, const T* __restrict__ x, T dx, hot::
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2 * D];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  hot::window_frame<T, D, SW>(w, x, dx, grid, df, n, window_nodes, stats, smem, s_box,
-                             [&](const T* src, const hot::Stencil<T, D, SW>& s,
-                                 const int off[D][SW], T M[D][D]) {
+  hot::window_frame<T, D, SW, Tiled>(w, x, dx, grid, df, n, window_nodes, stats, smem, s_box,
+                             [&](const T* src, const auto& map,
+                                 const hot::Stencil<T, D, SW>& s, const int off[D][SW],
+                                 T M[D][D]) {
     T grad[D][D];
-    hot::gather_grad(src, s, off, grad);
+    hot::gather_grad(src, map, s, off, grad);
     T F[D][D], U[D][D], V[D][D];
 #pragma unroll
     for (int i = 0; i < DD; ++i) {
@@ -131,66 +132,73 @@ fused_apply_kernel(const T* __restrict__ w, const T* __restrict__ x, T dx, hot::
   });
 }
 
-template <typename T, int D, int SW>
-int launch(const void* w, const void* x, double dx, const int* res, const void* F,
-           const void* U, const void* V, const void* A, const void* bp, const void* bm,
-           const void* V0, double dt, void* df, long long n, int threads, int window_nodes,
-           unsigned long long* stats, cudaStream_t stream) {
-  hot::Grid<D> grid;
-  for (int a = 0; a < D; ++a) grid.res[a] = res[a];
+template <typename T, int D, int SW, bool Tiled>
+int launch(const void* w, const void* x, double dx, const int* res, const int* lookup, int tile,
+           const void* F, const void* U, const void* V, const void* A, const void* bp,
+           const void* bm, const void* V0, double dt, void* df, long long n, int threads,
+           int window_nodes, unsigned long long* stats, cudaStream_t stream) {
+  const hot::Grid<D> grid = hot::make_grid<D>(res, lookup, tile);
   const size_t smem = window_nodes > 0 ? hot::window_bytes<T, D, SW>(window_nodes, threads) : 0;
   // the static shared memory counts against the default 48 KB too, so the
   // limit is raised for any window
   if (smem > 0) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        fused_apply_kernel<T, D, SW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_apply_kernel<T, D, SW, Tiled>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  fused_apply_kernel<T, D, SW><<<blocks, threads, smem, stream>>>(
+  fused_apply_kernel<T, D, SW, Tiled><<<blocks, threads, smem, stream>>>(
       (const T*)w, (const T*)x, (T)dx, grid, (const T*)F, (const T*)U, (const T*)V, (const T*)A,
       (const T*)bp, (const T*)bm, (const T*)V0, (T)dt, (T*)df, n, window_nodes, stats);
   return 0;
 }
 
-template <int SW>
+template <int SW, bool Tiled>
 int dispatch(int dtype, int dim, const void* w, const void* x, double dx, const int* res,
-             const void* F, const void* U, const void* V, const void* A, const void* bp,
-             const void* bm, const void* V0, double dt, void* df, long long n, int threads,
-             int window_nodes, unsigned long long* st, cudaStream_t s) {
-  if (dtype == 0 && dim == 3) return launch<float, 3, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-  if (dtype == 0 && dim == 2) return launch<float, 2, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 3) return launch<double, 3, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 2) return launch<double, 2, SW>(w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+             const int* lookup, int tile, const void* F, const void* U, const void* V,
+             const void* A, const void* bp, const void* bm, const void* V0, double dt,
+             void* df, long long n, int threads, int window_nodes, unsigned long long* st,
+             cudaStream_t s) {
+  if (dtype == 0 && dim == 3) return launch<float, 3, SW, Tiled>(w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+  if (dtype == 0 && dim == 2) return launch<float, 2, SW, Tiled>(w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 3) return launch<double, 3, SW, Tiled>(w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 2) return launch<double, 2, SW, Tiled>(w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64; width: stencil nodes per axis, 3
-// (quadratic) or 4 (cubic); res: dim grid sizes; threads: a multiple of 32
+// (quadratic) or 4 (cubic); res: dim grid sizes; lookup: NULL (w and df are
+// over the dense grid, row-major) or the tile grid's int32 logical tile ->
+// slot table, -1 inactive (w and df over its compact nodes; width 3 only),
+// with `tile` nodes per tile axis (> 0); threads: a multiple of 32
 // up to 256; window_nodes: the largest node box a block takes through shared
 // memory (0: every block through global memory); stats: NULL or
 // hot::kStatCount uint64 counters. Returns the error of raising the block's
 // shared-memory limit if that fails, else cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unsupported dtype, dim, width or
-// block).
+// launch (cudaErrorInvalidValue for an unsupported dtype, dim, width, tile
+// or block).
 extern "C" int hot_fused_apply(int dtype, int dim, int width, const void* w, const void* x,
-                               double dx, const int* res, const void* F, const void* U,
+                               double dx, const int* res, const int* lookup, int tile,
+                               const void* F, const void* U,
                                const void* V, const void* A, const void* bp, const void* bm,
                                const void* V0, double dt, void* df, long long n, int threads,
                                int window_nodes, void* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   auto* st = (unsigned long long*)stats;
   if (threads <= 0 || threads > hot::kMaxThreads || threads % hot::kWarp != 0 ||
-      window_nodes < 0)
+      window_nodes < 0 || (lookup != nullptr && tile <= 0))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     int rc;
-    if (width == 3)
-      rc = dispatch<3>(dtype, dim, w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
-    else if (width == 4)
-      rc = dispatch<4>(dtype, dim, w, x, dx, res, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+    if (width == 3 && lookup != nullptr)
+      rc = dispatch<3, true>(dtype, dim, w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+    else if (width == 3)
+      rc = dispatch<3, false>(dtype, dim, w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
+    else if (width == 4 && lookup == nullptr)
+      rc = dispatch<4, false>(dtype, dim, w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt, df, n, threads, window_nodes, st, s);
     else
       rc = (int)cudaErrorInvalidValue;
     if (rc != 0) return rc;

@@ -35,7 +35,7 @@ namespace {
 
 constexpr int kSweeps = 6;
 
-template <typename T, int D, int SW, typename Model>
+template <typename T, int D, int SW, bool Tiled, typename Model>
 __global__ void __launch_bounds__(hot::kMaxThreads)
 fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
                        hot::Grid<D> grid, const T* __restrict__ Fm,
@@ -50,11 +50,12 @@ fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2 * D];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  hot::window_frame<T, D, SW>(v, x, dx, grid, f, n, window_nodes, stats, smem, s_box,
-                             [&](const T* src, const hot::Stencil<T, D, SW>& s,
-                                 const int off[D][SW], T M[D][D]) {
+  hot::window_frame<T, D, SW, Tiled>(v, x, dx, grid, f, n, window_nodes, stats, smem, s_box,
+                             [&](const T* src, const auto& map,
+                                 const hot::Stencil<T, D, SW>& s, const int off[D][SW],
+                                 T M[D][D]) {
     T grad[D][D];
-    hot::gather_grad(src, s, off, grad);
+    hot::gather_grad(src, map, s, off, grad);
     T F[D][D], Fn[D][D];
 #pragma unroll
     for (int i = 0; i < DD; ++i) F[i / D][i % D] = Fm[i * n + p];
@@ -150,51 +151,51 @@ fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
   });
 }
 
-template <typename T, int D, int SW, typename Model>
-int launch(const void* v, const void* x, double dx, const int* res, const void* F,
-           const void* mu, const void* lam, const void* V0, double dt, int project, void* f,
-           void* U, void* V, void* A, void* bp, void* bm, long long n, int threads,
+template <typename T, int D, int SW, bool Tiled, typename Model>
+int launch(const void* v, const void* x, double dx, const int* res, const int* lookup, int tile,
+           const void* F, const void* mu, const void* lam, const void* V0, double dt, int project,
+           void* f, void* U, void* V, void* A, void* bp, void* bm, long long n, int threads,
            int window_nodes, unsigned long long* stats, cudaStream_t stream) {
-  hot::Grid<D> grid;
-  for (int a = 0; a < D; ++a) grid.res[a] = res[a];
+  const hot::Grid<D> grid = hot::make_grid<D>(res, lookup, tile);
   const size_t smem = window_nodes > 0 ? hot::window_bytes<T, D, SW>(window_nodes, threads) : 0;
   // the static shared memory counts against the default 48 KB too, so the
   // limit is raised for any window
   if (smem > 0) {
-    const cudaError_t rc = cudaFuncSetAttribute(fused_linearize_kernel<T, D, SW, Model>,
+    const cudaError_t rc = cudaFuncSetAttribute(fused_linearize_kernel<T, D, SW, Tiled, Model>,
                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
   const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  fused_linearize_kernel<T, D, SW, Model><<<blocks, threads, smem, stream>>>(
+  fused_linearize_kernel<T, D, SW, Tiled, Model><<<blocks, threads, smem, stream>>>(
       (const T*)v, (const T*)x, (T)dx, grid, (const T*)F, (const T*)mu, (const T*)lam,
       (const T*)V0, (T)dt, project, (T*)f, (T*)U, (T*)V, (T*)A, (T*)bp, (T*)bm, n,
       window_nodes, stats);
   return 0;
 }
 
-template <int SW, typename Model>
+template <int SW, bool Tiled, typename Model>
 int dispatch(int dtype, int dim, const void* v, const void* x, double dx, const int* res,
-             const void* F, const void* mu, const void* lam, const void* V0, double dt,
-             int project, void* f, void* U, void* V, void* A, void* bp, void* bm,
-             long long n, int threads, int window_nodes, unsigned long long* st,
-             cudaStream_t s) {
-  if (dtype == 0 && dim == 3) return launch<float, 3, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 0 && dim == 2) return launch<float, 2, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 3) return launch<double, 3, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 2) return launch<double, 2, SW, Model>(v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+             const int* lookup, int tile, const void* F, const void* mu, const void* lam,
+             const void* V0, double dt, int project, void* f, void* U, void* V, void* A,
+             void* bp, void* bm, long long n, int threads, int window_nodes,
+             unsigned long long* st, cudaStream_t s) {
+  if (dtype == 0 && dim == 3) return launch<float, 3, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (dtype == 0 && dim == 2) return launch<float, 2, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 3) return launch<double, 3, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 2) return launch<double, 2, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename Model>
 int dispatch_width(int width, int dtype, int dim, const void* v, const void* x, double dx,
-                   const int* res, const void* F, const void* mu, const void* lam,
-                   const void* V0, double dt, int project, void* f, void* U, void* V, void* A,
+                   const int* res, const int* lookup, int tile, const void* F, const void* mu,
+                   const void* lam, const void* V0, double dt, int project, void* f, void* U, void* V, void* A,
                    void* bp, void* bm, long long n, int threads, int window_nodes,
                    unsigned long long* st, cudaStream_t s) {
-  if (width == 3) return dispatch<3, Model>(dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (width == 4) return dispatch<4, Model>(dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (width == 3 && lookup != nullptr) return dispatch<3, true, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (width == 3) return dispatch<3, false, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+  if (width == 4 && lookup == nullptr) return dispatch<4, false, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -202,31 +203,33 @@ int dispatch_width(int width, int dtype, int dim, const void* v, const void* x, 
 
 // model: 0 = fixed_corotated, 1 = stvk_hencky, 2 = neo_hookean,
 // 3 = linear_corotated; dtype: 0 = float32, 1 = float64; width, res,
-// threads, window_nodes and stats as for hot_fused_apply. Returns the error
-// of raising the block's shared-memory limit if that fails, else
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported model, dtype, dim, width or block).
+// lookup, tile, threads, window_nodes and stats as for hot_fused_apply (v
+// and f over the grid's nodes). Returns the error of raising the block's
+// shared-memory limit if that fails, else cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unsupported model, dtype, dim, width,
+// tile or block).
 extern "C" int hot_fused_linearize(int model, int dtype, int dim, int width, const void* v,
-                                   const void* x, double dx, const int* res, const void* F,
-                                   const void* mu, const void* lam, const void* V0,
-                                   double dt, int project, void* f, void* U, void* V,
-                                   void* A, void* bp, void* bm, long long n, int threads,
-                                   int window_nodes, void* stats, void* stream) {
+                                   const void* x, double dx, const int* res,
+                                   const int* lookup, int tile, const void* F, const void* mu,
+                                   const void* lam, const void* V0, double dt, int project,
+                                   void* f, void* U, void* V, void* A, void* bp, void* bm,
+                                   long long n, int threads, int window_nodes, void* stats,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   auto* st = (unsigned long long*)stats;
   if (threads <= 0 || threads > hot::kMaxThreads || threads % hot::kWarp != 0 ||
-      window_nodes < 0)
+      window_nodes < 0 || (lookup != nullptr && tile <= 0))
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     int rc;
     if (model == 0)
-      rc = dispatch_width<hot::FixedCorotated>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::FixedCorotated>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
     else if (model == 1)
-      rc = dispatch_width<hot::StvkHencky>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::StvkHencky>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
     else if (model == 2)
-      rc = dispatch_width<hot::NeoHookean>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::NeoHookean>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
     else if (model == 3)
-      rc = dispatch_width<hot::LinearCorotated>(width, dtype, dim, v, x, dx, res, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::LinearCorotated>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
     else
       rc = (int)cudaErrorInvalidValue;
     if (rc != 0) return rc;

@@ -13,6 +13,20 @@
 // contiguous. The width is a template parameter: the quadratic and cubic
 // kernels are separate instances.
 //
+// Node addressing: the dense grid's row-major ids, or, with a tile lookup
+// (Grid::lookup, grid/sparse.py), the compact ids of the sparse tile grid:
+// a node in logical tile t at local position l (row-major inside the tile,
+// the last axis contiguous) lives at lookup[t] * tile^D + l, and lookup[t]
+// is -1 for an inactive tile. The window and the stencil stay in logical
+// node coordinates; the lookup applies only where a logical node becomes a
+// global address. A box node in an inactive tile reads 0 and is never
+// written (a particle's own stencil nodes are always in active tiles:
+// activation takes every tile of every stencil). Along the last axis a box
+// row is contiguous in memory only within a tile's run of `tile` nodes, so
+// the box load and flush take a run per thread and look its slot up once.
+// Tile-grid addressing is a template parameter (Tiled) of the frame and the
+// kernels: the dense instances compile to the code they had without it.
+//
 // Window: a block takes consecutive particles. Seeded in lattice order they
 // lie in a few cells, so the block reduces its particles' bases to a node box
 // (min base to max base + W - 1 per axis) and loads the grid vector over the box
@@ -63,6 +77,46 @@ enum WindowStat {
 template <int D>
 struct Grid {
   int res[D];
+  // tile grid (nullptr: the dense grid): logical tile -> slot, -1 inactive;
+  // tile nodes per axis, tile^D, and the row-major strides of the tiles
+  const int* lookup;
+  int tile, tile_nodes;
+  int tile_stride[D];
+};
+
+// A grid from the C interface's arguments (lookup may be null).
+template <int D>
+inline Grid<D> make_grid(const int* res, const int* lookup, int tile) {
+  Grid<D> g;
+  g.lookup = lookup;
+  g.tile = lookup != nullptr ? tile : 1;
+  g.tile_nodes = 1;
+  int stride = 1;
+  for (int a = D - 1; a >= 0; --a) {
+    g.res[a] = res[a];
+    g.tile_stride[a] = stride;
+    stride *= (res[a] + g.tile - 1) / g.tile;
+    g.tile_nodes *= g.tile;
+  }
+  return g;
+}
+
+// Node index -> address. In the window and on the dense grid the index is
+// the address (Local); on the tile grid's direct (global-memory) path
+// node_offsets makes the index tile id * tile^D + local id, and NodeMap
+// turns it into the compact address, -1 for an inactive tile.
+struct Local {
+  static constexpr bool kMayMiss = false;
+  __device__ __forceinline__ int operator()(int node) const { return node; }
+};
+struct NodeMap {
+  static constexpr bool kMayMiss = true;
+  const int* lookup;
+  int tile_nodes;
+  __device__ __forceinline__ int operator()(int node) const {
+    const int slot = lookup[node / tile_nodes];
+    return slot < 0 ? -1 : slot * tile_nodes + node % tile_nodes;
+  }
 };
 
 template <int D, int W>
@@ -225,10 +279,25 @@ __device__ __forceinline__ Window<D> block_window(const Stencil<T, D, W>& s, boo
 }
 
 // Flat node offsets per axis and stencil offset, from the box's first node
-// (in_window) or from grid node 0; a stencil node's index is their sum.
-template <typename T, int D, int W>
+// (in_window) or from grid node 0; a stencil node's index is their sum. On
+// the tile grid the direct path's index is tile id * tile^D + local id, which
+// NodeMap turns into the compact address.
+template <typename T, int D, int W, bool Tiled>
 __device__ __forceinline__ void node_offsets(const Stencil<T, D, W>& s, const Window<D>& win,
                                              const Grid<D>& g, bool in_window, int off[D][W]) {
+  if (Tiled && !in_window) {
+    int local = 1;
+#pragma unroll
+    for (int a = D - 1; a >= 0; --a) {
+#pragma unroll
+      for (int o = 0; o < W; ++o) {
+        const int c = s.c[a][o];
+        off[a][o] = (c / g.tile) * g.tile_stride[a] * g.tile_nodes + (c % g.tile) * local;
+      }
+      local *= g.tile;
+    }
+    return;
+  }
   int stride = 1;
 #pragma unroll
   for (int a = D - 1; a >= 0; --a) {
@@ -269,15 +338,20 @@ __device__ __forceinline__ void for_each_node(const Stencil<T, D, W>& s, const i
   }
 }
 
-// grad[a][b] = sum_k src[node_k][a] g_k[b]
-template <typename T, int D, int W>
-__device__ __forceinline__ void gather_grad(const T* src, const Stencil<T, D, W>& s,
-                                            const int off[D][W], T grad[D][D]) {
+// grad[a][b] = sum_k src[node_k][a] g_k[b] (an inactive node reads 0)
+template <typename T, int D, int W, typename Map>
+__device__ __forceinline__ void gather_grad(const T* src, const Map& map,
+                                            const Stencil<T, D, W>& s, const int off[D][W],
+                                            T grad[D][D]) {
 #pragma unroll
   for (int a = 0; a < D; ++a)
 #pragma unroll
     for (int b = 0; b < D; ++b) grad[a][b] = T(0);
-  for_each_node(s, off, [&](int node, const T* g) {
+  for_each_node(s, off, [&](int index, const T* g) {
+    const int node = map(index);
+    if constexpr (Map::kMayMiss) {
+      if (node < 0) return;
+    }
 #pragma unroll
     for (int a = 0; a < D; ++a) {
       const T va = src[node * D + a];
@@ -288,11 +362,15 @@ __device__ __forceinline__ void gather_grad(const T* src, const Stencil<T, D, W>
 }
 
 // dst[node_k][a] += sum_b M[a][b] g_k[b] by global atomicAdd (the direct
-// path).
-template <typename T, int D, int W>
-__device__ __forceinline__ void scatter(T* dst, const Stencil<T, D, W>& s, const int off[D][W],
-                                        const T M[D][D]) {
-  for_each_node(s, off, [&](int node, const T* g) {
+// path; an inactive node is skipped).
+template <typename T, int D, int W, typename Map>
+__device__ __forceinline__ void scatter(T* dst, const Map& map, const Stencil<T, D, W>& s,
+                                        const int off[D][W], const T M[D][D]) {
+  for_each_node(s, off, [&](int index, const T* g) {
+    const int node = map(index);
+    if constexpr (Map::kMayMiss) {
+      if (node < 0) return;
+    }
 #pragma unroll
     for (int a = 0; a < D; ++a) {
       T acc = T(0);
@@ -303,12 +381,41 @@ __device__ __forceinline__ void scatter(T* dst, const Stencil<T, D, W>& s, const
   });
 }
 
-// fn(window entry, grid entry) for every value of the box: one warp per row
-// of the box along the last axis, the lanes over the row's ext[D-1] * D
-// contiguous values.
-template <int D, typename Fn>
+// fn(window entry, grid entry) for every value of the box, the grid entry -1
+// where the node's tile is inactive. Dense grid: one warp per row of the box
+// along the last axis, the lanes over the row's ext[D-1] * D contiguous
+// values. Tile grid: one thread per run of a row inside one tile (at most
+// `tile` nodes, contiguous in memory), its slot looked up once.
+template <int D, bool Tiled, typename Fn>
 __device__ __forceinline__ void for_each_window_entry(const Window<D>& win, const Grid<D>& g,
                                                       Fn&& fn) {
+  if constexpr (Tiled) {
+    const int ext = win.ext[D - 1], lo = win.lo[D - 1];
+    const int t0 = lo / g.tile, runs = (lo + ext - 1) / g.tile - t0 + 1;
+    const int units = win.nodes / ext * runs;
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      const int row = u / runs, t = t0 + u % runs;
+      int tid = t * g.tile_stride[D - 1], local = 0, lstride = g.tile, r = row;
+#pragma unroll
+      for (int a = D - 2; a >= 0; --a) {
+        const int c = win.lo[a] + r % win.ext[a];
+        r /= win.ext[a];
+        tid += (c / g.tile) * g.tile_stride[a];
+        local += (c % g.tile) * lstride;
+        lstride *= g.tile;
+      }
+      const int slot = g.lookup[tid];
+      const int c_lo = max_(lo, t * g.tile), c_hi = min_(lo + ext, (t + 1) * g.tile);
+      for (int c = c_lo; c < c_hi; ++c) {
+        const int i = row * ext + (c - lo);
+        const long long gi =
+            slot < 0 ? -1 : ((long long)slot * g.tile_nodes + local + c % g.tile) * D;
+#pragma unroll
+        for (int a = 0; a < D; ++a) fn(i * D + a, gi < 0 ? -1 : gi + a);
+      }
+    }
+    return;
+  }
   const int run = win.ext[D - 1] * D;
   const int rows = win.nodes / win.ext[D - 1];
   const int lane = threadIdx.x % kWarp;
@@ -326,10 +433,12 @@ __device__ __forceinline__ void for_each_window_entry(const Window<D>& win, cons
 }
 
 // The box of src into sh.win, and the node counts zeroed.
-template <typename T, int D>
+template <typename T, int D, bool Tiled>
 __device__ __forceinline__ void load_window(const T* __restrict__ src, const Shared<T, D>& sh,
                                             const Window<D>& w, const Grid<D>& g) {
-  for_each_window_entry<D>(w, g, [&](int i, long long gi) { sh.win[i] = src[gi]; });
+  for_each_window_entry<D, Tiled>(w, g, [&](int i, long long gi) {
+    sh.win[i] = (Tiled && gi < 0) ? T(0) : src[gi];
+  });
   for (int i = threadIdx.x; i <= w.nodes; i += blockDim.x) sh.start[i] = 0;
 }
 
@@ -398,15 +507,15 @@ __device__ __forceinline__ void place(const Shared<T, D>& sh, const Stencil<T, D
 
 // Step 4: each node's slots summed per component, each non-zero sum added to
 // dst; returns this thread's count of atomics.
-template <typename T, int D>
+template <typename T, int D, bool Tiled>
 __device__ __forceinline__ unsigned flush_slots(const Shared<T, D>& sh, T* dst,
                                                 const Window<D>& w, const Grid<D>& g) {
   unsigned count = 0;
-  for_each_window_entry<D>(w, g, [&](int i, long long gi) {
+  for_each_window_entry<D, Tiled>(w, g, [&](int i, long long gi) {
     const int node = i / D, a = i - node * D;
     T v = T(0);
     for (int r = sh.start[node], end = sh.start[node + 1]; r < end; ++r) v += sh.slots[r * D + a];
-    if (v != T(0)) {
+    if (v != T(0) && !(Tiled && gi < 0)) {
       atomicAdd(&dst[gi], v);
       ++count;
     }
@@ -433,12 +542,14 @@ __device__ __forceinline__ void record_window(unsigned long long* stats, const W
 }
 
 // The particle kernels' common frame. With the per-particle chain
-//   chain(const T* src, const Stencil<T, D, W>& s, const int off[D][W], T M[D][D])
-// (gather from src at the offsets, compute, leave the scaled stress matrix in
-// M; run only for particles p < n) it does the stencil, the box, the window
+//   chain(const T* src, const Map& map, const Stencil<T, D, W>& s,
+//         const int off[D][W], T M[D][D])
+// (a generic lambda, Map being Local, or NodeMap on the tile grid's direct
+// path: gather from src at the mapped offsets, compute, leave the scaled
+// stress matrix in M; run only for particles p < n) it does the stencil, the box, the window
 // load, the gather-and-chain, the sorted scatter through the window or the
 // direct one into dst, and the counters.
-template <typename T, int D, int W, typename Chain>
+template <typename T, int D, int W, bool Tiled, typename Chain>
 __device__ __forceinline__ void window_frame(const T* __restrict__ src, const T* __restrict__ x,
                                              T dx, const Grid<D>& grid, T* __restrict__ dst,
                                              long long n, int window_nodes,
@@ -452,7 +563,7 @@ __device__ __forceinline__ void window_frame(const T* __restrict__ src, const T*
   const bool inner = valid && unclamped(s);
   const Window<D> win = block_window(s, inner, window_nodes, s_box);
   const Shared<T, D> sh = carve<T, D, W>(smem, window_nodes);
-  if (win.fits) load_window(src, sh, win, grid);
+  if (win.fits) load_window<T, D, Tiled>(src, sh, win, grid);
   __syncthreads();
 
   const bool windowed = win.fits && inner;
@@ -460,13 +571,18 @@ __device__ __forceinline__ void window_frame(const T* __restrict__ src, const T*
   int off[D][W];
   T M[D][D];
   if (valid) {
-    node_offsets(s, win, grid, windowed, off);
+    node_offsets<T, D, W, Tiled>(s, win, grid, windowed, off);
     if (windowed) {
-      chain(sh.win, s, off, M);
+      chain(sh.win, Local{}, s, off, M);
       count_nodes(sh, s, off);
+    } else if constexpr (Tiled) {
+      const NodeMap map{grid.lookup, grid.tile_nodes};
+      chain(src, map, s, off, M);
+      scatter(dst, map, s, off, M);
+      atomics = S * D;
     } else {
-      chain(src, s, off, M);
-      scatter(dst, s, off, M);
+      chain(src, Local{}, s, off, M);
+      scatter(dst, Local{}, s, off, M);
       atomics = S * D;
     }
   }
@@ -475,7 +591,7 @@ __device__ __forceinline__ void window_frame(const T* __restrict__ src, const T*
     scan_counts(sh, win.nodes);
     if (windowed) place(sh, s, off, M);
     __syncthreads();
-    atomics += flush_slots(sh, dst, win, grid);
+    atomics += flush_slots<T, D, Tiled>(sh, dst, win, grid);
   }
   if (stats != nullptr) record_window(stats, win, atomics);
 }

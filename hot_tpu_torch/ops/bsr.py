@@ -9,8 +9,14 @@ exact (eager PyTorch needs no static capacity):
 
   vals:     (n_rows, K, d, d)  block values, zero where absent
   col_row:  (n_rows, K) int32  neighbour's row index, -1 if absent/inactive
-  node_of:  (n_rows,) int64    flat node id per row
+  node_of:  (n_rows,) int64    node id per row
   row_of:   (n_nodes,) int64   inverse map, -1 for inactive nodes
+
+Node ids are the dense grid's row-major ids, or, on a level of the sparse
+tile grid (``tgrid``), its compact ids (``grid.sparse``; n_nodes is then
+n_cnodes, and a neighbour in an inactive tile is absent). Either way rows
+are built from the nodes' integer coordinates, so an assembled compact level
+has the same compressed-row layout.
 
 Every assembled operator of the port (the outer Hessian with
 ``matrix_free=False``, the quadrature-assembled and the Galerkin multigrid
@@ -43,6 +49,7 @@ class BsrMatrix:
     row_of: torch.Tensor    # (n_nodes,) int64, -1 = inactive
     res: Tuple[int, ...]
     half: int               # 2 for quadrature operators, 3/4 for Galerkin RAP
+    tgrid: object = None    # grid.sparse.TileGrid of compact node ids, None = dense
 
     def replace(self, **kw) -> "BsrMatrix":
         return dataclasses.replace(self, **kw)
@@ -67,6 +74,32 @@ def _offsets(dim: int, half: int, device):
     return torch.stack([g.reshape(-1) for g in grids], dim=-1)
 
 
+def node_coords(res, tgrid, ids):
+    """Integer coords (..., dim) of node ids on the dense grid of size res or
+    the tile grid `tgrid`."""
+    if tgrid is None:
+        return transfer.unravel(ids, res)
+    from hot_tpu_torch.grid import sparse
+
+    return sparse.compact_node_coords(tgrid, ids)
+
+
+def coords_to_nodes(res, tgrid, coords):
+    """Node ids of integer coords (..., dim): -1 outside the grid and, on a
+    tile grid, in an inactive tile."""
+    res_t = torch.tensor(res, dtype=torch.long, device=coords.device)
+    inside = ((coords >= 0) & (coords < res_t)).all(-1)
+    clipped = torch.minimum(coords.clamp(min=0), res_t - 1)
+    if tgrid is None:
+        ids = (clipped * transfer._row_major_strides(res, coords.device)).sum(-1)
+    else:
+        from hot_tpu_torch.grid import sparse
+
+        ids = sparse.compact_node_id(tgrid, clipped)
+        inside = inside & (ids != tgrid.dump)
+    return torch.where(inside, ids, -1)
+
+
 def active_rows(active):
     """(node_of (n_rows,), row_of (n_nodes,)) of an active-node mask."""
     node_of = torch.nonzero(active).reshape(-1)
@@ -75,23 +108,25 @@ def active_rows(active):
     return node_of, row_of
 
 
-def structure(active, res: Tuple[int, ...], half: int = 2, dtype=torch.float32) -> BsrMatrix:
-    """Symbolic structure: rows for active nodes, columns for active
-    neighbours; vals are zero."""
+def structure(active, res: Tuple[int, ...], half: int = 2, dtype=torch.float32,
+              tgrid=None) -> BsrMatrix:
+    """Symbolic structure: rows for active nodes (of the tile grid `tgrid`
+    if given), columns for active neighbours; vals are zero."""
     dim = len(res)
     device = active.device
     node_of, row_of = active_rows(active)
-    res_t = torch.tensor(res, dtype=torch.long, device=device)
-    coords = transfer.unravel(node_of, res)
-    ncoords = coords[:, None, :] + _offsets(dim, half, device)[None]   # (R, K, dim)
-    in_domain = ((ncoords >= 0) & (ncoords < res_t)).all(-1)
-    nids = (torch.minimum(ncoords.clamp(min=0), res_t - 1)
-            * transfer._row_major_strides(res, device)).sum(-1)
-    col_row = torch.where(in_domain, row_of[nids], -1).to(torch.int32)
+    coords = node_coords(res, tgrid, node_of)
+    nids = coords_to_nodes(res, tgrid, coords[:, None, :] + _offsets(dim, half, device)[None])
+    col_row = torch.where(nids >= 0, row_of[nids.clamp(min=0)], -1).to(torch.int32)
     K = col_row.shape[1]
     vals = torch.zeros((node_of.shape[0], K, dim, dim), dtype=dtype, device=device)
     return BsrMatrix(vals=vals, col_row=col_row, node_of=node_of, row_of=row_of,
-                     res=tuple(res), half=half)
+                     res=tuple(res), half=half, tgrid=tgrid)
+
+
+def row_coords(mat: BsrMatrix):
+    """(n_rows, dim) integer coords of the rows' nodes."""
+    return node_coords(mat.res, mat.tgrid, mat.node_of)
 
 
 def assemble_hessian(mat: BsrMatrix, stencil: transfer.Stencil, F_n, ctx: cm.HessianContext,
@@ -118,7 +153,7 @@ def assemble_hessian(mat: BsrMatrix, stencil: transfer.Stencil, F_n, ctx: cm.Hes
         dPs = cm.apply_hessian(ctx_b, dF)                             # (c, s, d_a, d, d)
         blocks = (dt * V0[sl])[:, None, None, None, None] * torch.einsum(
             "piabc,pjc->pjiba", dPs, g)                               # (c, s_j, s_i, d, d)
-        coords = transfer.unravel(stencil.node_ids[sl], mat.res)      # (c, s, dim)
+        coords = node_coords(mat.res, mat.tgrid, stencil.node_ids[sl])  # (c, s, dim)
         off5 = coords[:, None, :, :] - coords[:, :, None, :] + 2      # (c, s_j, s_i, dim)
         off_id = torch.zeros(off5.shape[:-1], dtype=torch.long, device=device)
         for a in range(dim):

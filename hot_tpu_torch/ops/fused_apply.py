@@ -16,6 +16,12 @@ The stencil (node_k(p), gw_pk) is the quadratic or cubic B-spline stencil
 x on the grid of spacing dx and size res; the kernel computes it from x, so
 the same call serves every matrix-free multigrid level (its dx and res).
 The quadratic and cubic stencils are separate instances of the kernel.
+
+With ``tgrid`` (a ``grid.sparse.TileGrid``) the grid vectors w and df live
+on that tile grid's compact nodes (n_cnodes, d), and the node ids are its
+compact ids (``grid.sparse.sparse_stencil``, quadratic only): the kernel
+takes the tile lookup and turns each logical node into its compact address
+(the source's note says how).
 Per-particle arguments are structure-of-arrays with the particle index
 last: x (d, n),
 F/U/V/A (d*d, n) row-major per particle, b_plus/b_minus (n_pairs, n),
@@ -106,11 +112,21 @@ def launch_config(d: int, width: int, itemsize: int):
     return threads, WINDOW_NODES
 
 
+def stencil_of(x, dx, res, kernel: str = "quadratic", tgrid=None) -> transfer.Stencil:
+    """The stencil the kernels compute from x (d, n): the dense grid's, or
+    with compact ids on the tile grid `tgrid` (quadratic only)."""
+    if tgrid is None:
+        return transfer.particle_stencil(x.T, dx, res, kernel=kernel)
+    from hot_tpu_torch.grid import sparse
+
+    return sparse.sparse_stencil(x.T, dx, tgrid)
+
+
 def fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
-                      kernel: str = "quadratic"):
+                      kernel: str = "quadratic", tgrid=None):
     """The unfused chain in plain PyTorch (the reference for the kernel)."""
     d = w.shape[-1]
-    st = transfer.particle_stencil(x.T, dx, res, kernel=kernel)
+    st = stencil_of(x, dx, res, kernel, tgrid)
     Fp = aos_mat(F, d)
     ctx = cm.HessianContext(U=aos_mat(U, d), V=aos_mat(V, d), A=aos_mat(A, d),
                             b_plus=b_plus.T, b_minus=b_minus.T)
@@ -119,20 +135,30 @@ def fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
     return transfer.scatter_force(st, dP @ Fp.transpose(-1, -2), V0, w.shape[0])
 
 
-def param_specs(grid_vec, x, res, **params):
+def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **params):
     """check_inputs specs for a stencil kernel's arguments: the grid vector
-    (n_nodes, d) over res, x (d, n) and the per-particle SoA arrays."""
+    (n_nodes, d) over res (the tile grid's (n_cnodes, d) with `tgrid`), x
+    (d, n), the per-particle SoA arrays and the tile lookup."""
     d = grid_vec.shape[-1]
     n = x.shape[-1]
     if d not in (2, 3) or len(res) != d:
         raise ValueError(f"need a 2D or 3D grid, got d={d}, res={tuple(res)}")
     n_nodes = math.prod(int(r) for r in res)
-    if n_nodes * d >= 2 ** 31:
+    if tgrid is not None:
+        if tuple(tgrid.res) != tuple(res) or kernel_width(kernel) != 3:
+            raise ValueError(f"the tile grid of res {tgrid.res} takes the quadratic stencil "
+                             f"on that grid, got {kernel} on {tuple(res)}")
+        tiled = math.prod(r * tgrid.tile for r in tgrid.tile_res)
+        if max(tgrid.n_cnodes, tiled) * d >= 2 ** 31:
+            raise ValueError(f"tile grid {tuple(res)} too large for 32-bit node offsets")
+    elif n_nodes * d >= 2 ** 31:
         raise ValueError(f"grid {tuple(res)} too large for 32-bit node offsets")
     rows = {"F": d * d, "U": d * d, "V": d * d, "A": d * d,
             "b_plus": 1 if d == 2 else 3, "b_minus": 1 if d == 2 else 3}
-    specs = [("grid vector", grid_vec, (n_nodes, d), grid_vec.dtype),
-             ("x", x, (d, n), grid_vec.dtype)]
+    specs = [("grid vector", grid_vec, (n_nodes if tgrid is None else tgrid.n_cnodes, d),
+              grid_vec.dtype), ("x", x, (d, n), grid_vec.dtype)]
+    if tgrid is not None:
+        specs.append(("tile lookup", tgrid.lookup, (tgrid.n_tiles_logical,), torch.int32))
     for name, t in params.items():
         specs.append((name, t, (rows[name], n) if name in rows else (n,), grid_vec.dtype))
     return specs
@@ -150,18 +176,24 @@ def launch_args(ref, width, threads, window_nodes, stats):
             None if stats is None else stats.data_ptr())
 
 
+def lookup_args(tgrid):
+    """(lookup pointer or None, tile) of a stencil kernel's node addressing."""
+    return (None, 0) if tgrid is None else (tgrid.lookup.data_ptr(), tgrid.tile)
+
+
 def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
-                     kernel: str = "quadratic", threads=None, window_nodes=None):
+                     kernel: str = "quadratic", tgrid=None, threads=None, window_nodes=None):
     """Launch the CUDA kernel (CUDA tensors only)."""
     global launches
     params = dict(F=F, U=U, V=V, A=A, b_plus=b_plus, b_minus=b_minus, V0=V0)
-    cuda_lib.check_inputs(w, param_specs(w, x, res, **params))
+    cuda_lib.check_inputs(w, param_specs(w, x, res, tgrid, kernel, **params))
     width = kernel_width(kernel)
     lib = cuda_lib.load()
     df = torch.zeros_like(w)
     rc = lib.hot_fused_apply(
         cuda_lib.dtype_code(w), w.shape[-1], width, w.data_ptr(), x.data_ptr(), float(dx),
-        cuda_lib.int_array(res), *(t.data_ptr() for t in params.values()), float(dt),
+        cuda_lib.int_array(res), *lookup_args(tgrid),
+        *(t.data_ptr() for t in params.values()), float(dt),
         df.data_ptr(), x.shape[1], *launch_args(w, width, threads, window_nodes, window_stats),
         cuda_lib.stream_ptr(w.device))
     cuda_lib.check(rc, "fused_apply")
@@ -169,10 +201,12 @@ def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
     return df
 
 
-def fused_apply(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel: str = "quadratic"):
+def fused_apply(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel: str = "quadratic",
+                tgrid=None):
     """df (n_nodes, d) for grid direction w (see the module doc)."""
+    args = (w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel, tgrid)
     if w.device.type == "cpu":
-        return fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel)
+        return fused_apply_plain(*args)
     if w.device.type != "cuda":
         raise ValueError(f"fused_apply runs on cpu or cuda tensors, not {w.device}")
-    return fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel)
+    return fused_apply_cuda(*args)

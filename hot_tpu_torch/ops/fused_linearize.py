@@ -11,7 +11,8 @@ velocity v it returns
 
 The stencil is the quadratic or cubic one (``kernel``) of the particle
 positions x (d, n) on the grid of spacing dx and size res, computed in the
-kernel, as in ``ops.fused_apply``. Every model of
+kernel, as in ``ops.fused_apply``; with ``tgrid`` the grid vectors live on
+that tile grid's compact nodes, as there. Every model of
 ``models.constitutive.MODEL_REGISTRY`` has a code (``MODEL_CODES``) in the
 kernel.
 The context comes out in the structure-of-arrays layout that the apply
@@ -38,7 +39,8 @@ from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.ops import cuda_lib
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bspline import kernel_width
-from hot_tpu_torch.ops.fused_apply import aos_mat, launch_args, param_specs, soa
+from hot_tpu_torch.ops.fused_apply import (aos_mat, launch_args, lookup_args, param_specs, soa,
+                                           stencil_of)
 
 MODEL_CODES = {"fixed_corotated": 0, "stvk_hencky": 1, "neo_hookean": 2, "linear_corotated": 3}
 
@@ -47,10 +49,10 @@ window_stats = None
 
 
 def fused_linearize_plain(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True,
-                          kernel: str = "quadratic"):
+                          kernel: str = "quadratic", tgrid=None):
     """The unfused chain in plain PyTorch (the reference for the kernel)."""
     d = v.shape[-1]
-    st = transfer.particle_stencil(x.T, dx, res, kernel=kernel)
+    st = stencil_of(x, dx, res, kernel, tgrid)
     Fp = aos_mat(F, d)
     eye = torch.eye(d, dtype=v.dtype, device=v.device)
     F_new = (eye + dt * transfer.velocity_gradient(st, v)) @ Fp
@@ -60,14 +62,15 @@ def fused_linearize_plain(v, x, dx, res, F, mu, lam, V0, dt, model, project: boo
 
 
 def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True,
-                         kernel: str = "quadratic", threads=None, window_nodes=None):
+                         kernel: str = "quadratic", tgrid=None, threads=None,
+                         window_nodes=None):
     """Launch the CUDA kernel (CUDA tensors only)."""
     global launches
     if model.name not in MODEL_CODES:
         raise NotImplementedError(f"no linearize kernel for model '{model.name}'")
     d = v.shape[-1]
     n = x.shape[1]
-    cuda_lib.check_inputs(v, param_specs(v, x, res, F=F, mu=mu, lam=lam, V0=V0))
+    cuda_lib.check_inputs(v, param_specs(v, x, res, tgrid, kernel, F=F, mu=mu, lam=lam, V0=V0))
     width = kernel_width(kernel)
     lib = cuda_lib.load()
     n_pairs = 1 if d == 2 else 3
@@ -76,7 +79,8 @@ def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool
     bp, bm = (torch.empty((n_pairs, n), dtype=v.dtype, device=v.device) for _ in range(2))
     rc = lib.hot_fused_linearize(
         MODEL_CODES[model.name], cuda_lib.dtype_code(v), d, width, v.data_ptr(), x.data_ptr(),
-        float(dx), cuda_lib.int_array(res), F.data_ptr(), mu.data_ptr(), lam.data_ptr(),
+        float(dx), cuda_lib.int_array(res), *lookup_args(tgrid), F.data_ptr(), mu.data_ptr(),
+        lam.data_ptr(),
         V0.data_ptr(), float(dt), int(bool(project)), f.data_ptr(), U.data_ptr(),
         V.data_ptr(), A.data_ptr(), bp.data_ptr(), bm.data_ptr(), n,
         *launch_args(v, width, threads, window_nodes, window_stats),
@@ -87,9 +91,9 @@ def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool
 
 
 def fused_linearize(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool = True,
-                    kernel: str = "quadratic"):
+                    kernel: str = "quadratic", tgrid=None):
     """(f, U, V, A, b_plus, b_minus) at grid velocity v (see the module doc)."""
-    args = (v, x, dx, res, F, mu, lam, V0, dt, model, project, kernel)
+    args = (v, x, dx, res, F, mu, lam, V0, dt, model, project, kernel, tgrid)
     if v.device.type == "cpu":
         return fused_linearize_plain(*args)
     if v.device.type != "cuda":

@@ -12,6 +12,10 @@ Both products are dense tensor algebra in plain PyTorch: step 1, W = A P, is
 one matrix product per parity class of the fine rows; step 2, P^T W, is
 3^dim ``index_add_`` scatters into the coarse rows. The result depends only
 on the fine operator's node_of, col_row and vals, not on its row order.
+Either operator may live on a level of the sparse tile grid (compact node
+ids, ``ops.bsr``): coarse couplings that land outside the coarse tile
+grid's active tiles are dropped (subspace Galerkin, as in hot_tpu; the
+restriction drops the same rows).
 """
 
 from __future__ import annotations
@@ -22,7 +26,6 @@ import numpy as np
 import torch
 
 from hot_tpu_torch.ops import bsr as bsr_mod
-from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bspline import quadratic_kernel_1d, stencil_offsets
 
 
@@ -60,8 +63,9 @@ def _parity_pattern(h: int, wm: int, w1d: int):
 
 
 def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
-        max_half: Optional[int] = None) -> bsr_mod.BsrMatrix:
-    """A_c = P^T A P over the active coarse nodes.
+        max_half: Optional[int] = None, coarse_tgrid=None) -> bsr_mod.BsrMatrix:
+    """A_c = P^T A P over the active coarse nodes (compact nodes of
+    `coarse_tgrid` if given).
 
     max_half caps the output stencil half (MultigridConfig.rap_max_half):
     the |offset| > max_half couplings are dropped symmetrically."""
@@ -69,7 +73,7 @@ def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
     dd = dim * dim
     dtype, device = A.vals.dtype, A.vals.device
     R = A.n_rows
-    coords = transfer.unravel(A.node_of, A.res)
+    coords = bsr_mod.row_coords(A)
 
     # ---- step 1: W = A P (fine rows x coarse window), per parity class
     wm = (h + 1) // 2
@@ -94,16 +98,14 @@ def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
 
     # ---- step 2: A_c = P^T W (scatter into the coarse stencil)
     h_c = rap_half_out(h) if max_half is None else min(rap_half_out(h), int(max_half))
-    A_c = bsr_mod.structure(coarse_active, coarse_res, half=h_c, dtype=dtype)
+    A_c = bsr_mod.structure(coarse_active, coarse_res, half=h_c, dtype=dtype,
+                            tgrid=coarse_tgrid)
     Kc = A_c.K
     base_j, w_j = embedding_weights(coords, dtype)
     emb_offs = stencil_offsets(dim, device=device)                 # (3^d, dim)
-    res_c = torch.tensor(coarse_res, dtype=torch.long, device=device)
-    Jc = base_j[:, None, :] + emb_offs[None]                       # (R, 3^d, dim)
-    Jc_ok = ((Jc >= 0) & (Jc < res_c)).all(-1)
-    Jc_node = (torch.minimum(Jc.clamp(min=0), res_c - 1)
-               * transfer._row_major_strides(coarse_res, device)).sum(-1)
-    Jc_row = torch.where(Jc_ok, A_c.row_of[Jc_node], -1)            # (R, 3^d)
+    Jc_node = bsr_mod.coords_to_nodes(coarse_res, coarse_tgrid,
+                                      base_j[:, None, :] + emb_offs[None])   # (R, 3^d)
+    Jc_row = torch.where(Jc_node >= 0, A_c.row_of[Jc_node.clamp(min=0)], -1)
 
     offs_c = np.stack(np.meshgrid(*([np.arange(-h_c, h_c + 1)] * dim), indexing="ij"),
                       -1).reshape(-1, dim)

@@ -14,8 +14,11 @@ or cubic, ``ObjectiveContext.kernel``) from their positions; positions and
 deformation gradients are kept in the kernels' structure-of-arrays layout
 (particle index last), built once per step in ``make_objective``.
 
-Unknowns are (n_nodes, d) over the flattened dense grid; inactive nodes
-(zero mass) act as the identity so CG leaves them alone.
+Unknowns are (n_nodes, d) over the flattened dense grid, or over the
+compact nodes of the sparse tile grid (``ObjectiveContext.tgrid``; every
+per-node array, from the mass to the block-Jacobi blocks, is then
+n_cnodes long); inactive nodes (zero mass) act as the identity so CG leaves
+them alone.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ class ObjectiveContext(NamedTuple):
     dx: float
     res: tuple               # grid size per axis
     kernel: str              # transfer kernel family: quadratic | cubic
+    tgrid: object = None     # grid.sparse.TileGrid of compact nodes, None = dense
 
 
 class HessianState(NamedTuple):
@@ -69,13 +73,15 @@ class HessianState(NamedTuple):
 
 
 def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
-                   dt: float, dx: float, x, res, kernel: str = "quadratic") -> ObjectiveContext:
+                   dt: float, dx: float, x, res, kernel: str = "quadratic",
+                   tgrid=None) -> ObjectiveContext:
     """Build the ObjectiveContext for the particles at x (n, d), whose
     stencil of the kernel family on the grid (dx, res) is `stencil`, with
     the characteristic-norm scale:
       force scale   f_i = sum_p w_ip V0_p (2 mu_p + lam_p) / dx
       impulse scale s_i = max(dt f_i, m_i dx / dt)
-    (the second term keeps free-fall nodes, with no stiffness, scaled)."""
+    (the second term keeps free-fall nodes, with no stiffness, scaled).
+    With `tgrid` the stencil's node ids are that tile grid's compact ids."""
     active = grid_m > 0
     n_nodes = grid_m.shape[0]
     stiff = V0 * (2.0 * mu + lam) / dx
@@ -85,7 +91,7 @@ def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
     return ObjectiveContext(
         stencil=stencil, F_n=F_n, V0=V0, mu=mu, lam=lam, grid_m=grid_m,
         v_star=v_star, active=active, proj=proj, dt=dt, cn_scale=cn_scale,
-        x_soa=soa(x), F_soa=soa(F_n), dx=dx, res=tuple(res), kernel=kernel,
+        x_soa=soa(x), F_soa=soa(F_n), dx=dx, res=tuple(res), kernel=kernel, tgrid=tgrid,
     )
 
 
@@ -122,18 +128,18 @@ def linearize(model, obj: ObjectiveContext, v, project_spd: bool = True):
     per-Newton-iteration evaluation, through ``ops.fused_linearize``."""
     f, U, V, A, bp, bm = fused_linearize(
         v, obj.x_soa, obj.dx, obj.res, obj.F_soa, obj.mu, obj.lam, obj.V0, obj.dt, model,
-        project=project_spd, kernel=obj.kernel)
+        project=project_spd, kernel=obj.kernel, tgrid=obj.tgrid)
     r = obj.grid_m[:, None] * (v - obj.v_star) - obj.dt * f
     return project(obj, r), HessianState(U=U, V=V, A=A, b_plus=bp, b_minus=bm)
 
 
 def elastic_hessian_apply(x_soa, dx: float, res, F_soa, hess: HessianState, V0,
-                          dt: float, grid_m, active, w, kernel: str = "quadratic"):
+                          dt: float, grid_m, active, w, kernel: str = "quadratic", tgrid=None):
     """Matrix-free (M + dt^2 K) w through ``ops.fused_apply``; the identity
     on inactive nodes. The grid (dx, res) may be any multigrid level's, with
-    that level's mass and mask."""
+    that level's mass and mask (and tile grid, for compact nodes)."""
     df = fused_apply(w, x_soa, dx, res, F_soa, hess.U, hess.V, hess.A, hess.b_plus,
-                     hess.b_minus, V0, dt, kernel)
+                     hess.b_minus, V0, dt, kernel, tgrid)
     out = grid_m[:, None] * w - dt * df
     return torch.where(active[:, None], out, w)
 
@@ -141,7 +147,12 @@ def elastic_hessian_apply(x_soa, dx: float, res, F_soa, hess: HessianState, V0,
 def multiply(obj: ObjectiveContext, hess: HessianState, w):
     """H w at the finest level."""
     return elastic_hessian_apply(obj.x_soa, obj.dx, obj.res, obj.F_soa, hess, obj.V0, obj.dt,
-                                 obj.grid_m, obj.active, w, obj.kernel)
+                                 obj.grid_m, obj.active, w, obj.kernel, obj.tgrid)
+
+
+# particles per block-diagonal chunk: bounds each (chunk, s, d, d)
+# temporary at 2^24 values (unchunked, one is 6.2 GB in fp64 at 256^3)
+_BLOCK_DIAG_BUDGET = 2 ** 24
 
 
 def elastic_block_diag(stencil, F_n, ctx: cm.HessianContext, V0, dt: float,
@@ -154,24 +165,30 @@ def elastic_block_diag(stencil, F_n, ctx: cm.HessianContext, V0, dt: float,
     with y_k = V^T F^T gw_k and
       z_m = U (Q e_m o y_k)            lam_m = eig_m(A)   (normal modes)
       z   = (U_i y_j +- U_j y_i)/sqrt2  lam = b-/b+       (pair modes).
+    Computed and scattered in chunks of particles.
     """
     d = dim
     n_nodes = grid_m.shape[0]
     n, s = stencil.wn.shape
-    g = torch.einsum("pkb,pba->pka", stencil.gwn, F_n)       # F^T gw_k
-    y = torch.einsum("pka,pac->pkc", g, ctx.V)
-    w_eig, Q = eigh_sym(ctx.A)
-    lam_scale = (dt * dt) * V0
-    z = torch.einsum("pec,pcm,pkc->pkme", ctx.U, Q, y)        # (n, s, d, d)
-    B = torch.einsum("pm,pkma,pkmb->pkab", lam_scale[:, None] * w_eig, z, z)
+    K = torch.zeros((n_nodes, d * d), dtype=F_n.dtype, device=F_n.device)
+    chunk = max(1, _BLOCK_DIAG_BUDGET // (s * d * d))
     inv_sqrt2 = 0.7071067811865476
-    for k_p, (i, j) in enumerate(cm._pairs(d)):
-        Ui, Uj = ctx.U[:, None, :, i], ctx.U[:, None, :, j]    # (n, 1, d)
-        yi, yj = y[:, :, i, None], y[:, :, j, None]            # (n, s, 1)
-        for b, sign in ((ctx.b_minus[:, k_p], 1.0), (ctx.b_plus[:, k_p], -1.0)):
-            zm = (Ui * yj + sign * Uj * yi) * inv_sqrt2
-            B = B + (lam_scale * b)[:, None, None, None] * zm[..., :, None] * zm[..., None, :]
-    K = transfer.scatter_sum(stencil.node_ids, B.reshape(n, s, d * d), n_nodes)
+    for lo in range(0, n, chunk):
+        sl = slice(lo, min(n, lo + chunk))
+        U, V, A, b_plus, b_minus = (t[sl] for t in ctx)
+        g = torch.einsum("pkb,pba->pka", stencil.gwn[sl], F_n[sl])   # F^T gw_k
+        y = torch.einsum("pka,pac->pkc", g, V)
+        w_eig, Q = eigh_sym(A)
+        lam_scale = (dt * dt) * V0[sl]
+        z = torch.einsum("pec,pcm,pkc->pkme", U, Q, y)              # (c, s, d, d)
+        B = torch.einsum("pm,pkma,pkmb->pkab", lam_scale[:, None] * w_eig, z, z)
+        for k_p, (i, j) in enumerate(cm._pairs(d)):
+            Ui, Uj = U[:, None, :, i], U[:, None, :, j]              # (c, 1, d)
+            yi, yj = y[:, :, i, None], y[:, :, j, None]              # (c, s, 1)
+            for b, sign in ((b_minus[:, k_p], 1.0), (b_plus[:, k_p], -1.0)):
+                zm = (Ui * yj + sign * Uj * yi) * inv_sqrt2
+                B = B + (lam_scale * b)[:, None, None, None] * zm[..., :, None] * zm[..., None, :]
+        K.index_add_(0, stencil.node_ids[sl].reshape(-1), B.reshape(-1, d * d))
     eye = torch.eye(d, dtype=K.dtype, device=K.device)
     D = grid_m[:, None, None] * eye + K.reshape(n_nodes, d, d)
     return torch.where(active[:, None, None], D, eye)

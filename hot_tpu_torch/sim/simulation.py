@@ -1,7 +1,10 @@
 """The MPM time step and the frame loop.
 
-Counterpart of ``hot_tpu.sim.simulation`` for the dense grid, with quadratic
-or cubic B-spline transfers (``transfer_kernel``). The default integrator is
+Counterpart of ``hot_tpu.sim.simulation`` on the dense grid or the sparse
+tile grid (``grid_backend="sparse"``, ``grid.sparse``: every grid array over
+the compact nodes of the tiles the particles touch, at most
+``tile_capacity`` of them), with quadratic or cubic B-spline transfers
+(``transfer_kernel``; cubic on the dense grid only). The default integrator is
 implicit backward Euler with inexact Newton: P2G -> grid BC -> Newton
 {linearize -> preconditioner -> CG or MINRES {Hessian apply} [-> Armijo line
 search]} -> G2P -> F update -> plasticity -> advection. The Hessian is
@@ -10,18 +13,20 @@ explicit BSR operator assembled once per Newton iteration (``ops.bsr``,
 applied by ``ops.bsr_spmv``). The preconditioner is none, mass Jacobi,
 block-Jacobi or HOT's multigrid (``solver.multigrid``: matrix-free
 quadrature levels or assembled levels with Galerkin or quadrature
-coarsening). ``solver.nonlinear="lbfgs"`` minimises the same objective by
+coarsening, the first assembled level below a matrix-free finest one the
+composed Galerkin operator). ``solver.nonlinear="lbfgs"`` minimises the same objective by
 L-BFGS (``solver.lbfgs``, the paper's LBFGS-H baseline) and
 ``solver.integrator="explicit"`` takes a symplectic-Euler grid update at
 F_n with no solve. The plasticity return maps are von Mises, snow (with Jp)
 and Drucker-Prager at a 30 degree friction angle (``models.plasticity``).
 The kernels run whenever the state lives on a CUDA device.
 
-The step is eager PyTorch; dt is a Python float. Not ported (they raise
-NotImplementedError): the sparse grid and the composed Galerkin multigrid
-level. As in hot_tpu, cubic transfers refuse every operator assembled into
-the 5-wide quadratic BSR: the explicit outer Hessian, assembled multigrid
-levels and (the port's addition) the direct coarse solve.
+The step is eager PyTorch; dt is a Python float. As in hot_tpu, cubic
+transfers refuse every operator assembled into the 5-wide quadratic BSR:
+the explicit outer Hessian, assembled multigrid levels and (the port's
+addition) the direct coarse solve; the sparse grid refuses cubic transfers
+and the explicit outer Hessian. Not ported (they raise NotImplementedError):
+a device mesh other than (1,) and the halo overlap of the sharded step.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from hot_tpu_torch.grid import sparse
 from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.models import plasticity as plast
 from hot_tpu_torch.ops import bsr
@@ -58,9 +64,11 @@ class StepStats(NamedTuple):
     potential_energy: float
     active_nodes: int
     ls_backtracks: int          # line-search halvings (0 without line search)
+    active_tiles: int = 0       # active tiles of the sparse grid (0 on the dense grid)
 
 
 PLASTICITY = ("von_mises", "snow", "drucker_prager")
+GRID_BACKENDS = ("dense", "sparse")
 INTEGRATORS = ("implicit", "explicit")
 NONLINEAR = ("newton", "lbfgs")
 DRUCKER_PRAGER_FRICTION_DEG = 30.0
@@ -70,18 +78,23 @@ def _check_supported(cfg: SimConfig, plasticity):
     sol = cfg.solver
     mgc = sol.multigrid
     unsupported = [
-        (cfg.grid_backend != "dense", f"grid_backend='{cfg.grid_backend}'"),
-        (sol.preconditioner == "multigrid" and mgc.assembled and mgc.coarsening == "galerkin"
-         and mgc.assembled_from_level > 0,
-         "composed Galerkin multigrid (assembled_from_level > 0, coarsening='galerkin')"),
+        (tuple(cfg.mesh.shape) != (1,), f"a device mesh of shape {tuple(cfg.mesh.shape)}"),
+        (sol.overlap_halo, "solver.overlap_halo (the sharded step's halo overlap)"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported to hot_tpu_torch yet")
     for name, value, allowed in (("integrator", sol.integrator, INTEGRATORS),
-                                 ("nonlinear", sol.nonlinear, NONLINEAR)):
+                                 ("nonlinear", sol.nonlinear, NONLINEAR),
+                                 ("grid_backend", cfg.grid_backend, GRID_BACKENDS)):
         if value not in allowed:
             raise ValueError(f"unknown {name} '{value}'; have {allowed}")
+    if cfg.grid_backend == "sparse":
+        # hot_tpu's refusals (simulation.py:115-118, 287-290)
+        if kernel_width(cfg.transfer_kernel) != 3:
+            raise NotImplementedError("cubic transfers require the dense grid backend")
+        if not sol.matrix_free:
+            raise NotImplementedError("explicit BSR currently requires the dense grid backend")
     if kernel_width(cfg.transfer_kernel) != 3:
         # hot_tpu's refusals (simulation.py:291-295, 363-367), whatever the
         # integrator, and the direct coarse solve, which assembles the
@@ -199,7 +212,9 @@ def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
         mg_static = mg_mod.build_static(
             state.x, state.m, res, dx, mgc.levels, constrained, dtype,
             assembled_from=mgc.assembled_from_level if mgc.assembled else None,
-            kernel=cfg.transfer_kernel)
+            kernel=cfg.transfer_kernel, tgrid=objective.tgrid,
+            tile_capacity=cfg.tile_capacity, dense_switch=mgc.sparse_dense_switch,
+            composed=mgc.coarsening == "galerkin")
 
         def build_precond(hp):
             return mg_mod.build_precond(mg_static, state.F, hp[0], state.V0, dt, mgc, dim)
@@ -255,10 +270,17 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     dtype, device = state.x.dtype, state.x.device
     sol = cfg.solver
 
-    # ---- P2G
-    st = transfer.particle_stencil(state.x, dx, res, kernel=cfg.transfer_kernel)
-    n_nodes = transfer.n_nodes_of(res)
-    node_pos = transfer.node_positions(res, dx, dtype, device)
+    # ---- grid activation + P2G
+    if cfg.grid_backend == "sparse":
+        tgrid = sparse.build_tile_grid(state.x, dx, res, cfg.tile_capacity)
+        st = sparse.sparse_stencil(state.x, dx, tgrid)
+        n_nodes = tgrid.n_cnodes
+        node_pos = sparse.node_positions(tgrid, dx, dtype)
+    else:
+        tgrid = None
+        st = transfer.particle_stencil(state.x, dx, res, kernel=cfg.transfer_kernel)
+        n_nodes = transfer.n_nodes_of(res)
+        node_pos = transfer.node_positions(res, dx, dtype, device)
     grid_m, grid_mv = transfer.p2g_mass_momentum(st, state.v, state.C, state.m, n_nodes)
     active = grid_m > 0
     inv_m = torch.where(active, 1.0 / torch.clamp(grid_m, min=1e-30), torch.zeros_like(grid_m))
@@ -274,7 +296,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     # ---- grid update: implicit (Newton or L-BFGS) or explicit
     objective = obj_mod.make_objective(model, st, state.F, state.V0, state.mu, state.lam,
                                        grid_m, v_star, proj, dt, dx, state.x, res,
-                                       kernel=cfg.transfer_kernel)
+                                       kernel=cfg.transfer_kernel, tgrid=tgrid)
     if sol.integrator == "explicit":
         result = _explicit_update(model, objective, state, inv_m)
     elif sol.nonlinear == "lbfgs":
@@ -314,6 +336,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
         cn_residual=result.cn_residual, cn_residual0=result.cn_residual0,
         converged=result.converged, max_velocity=vmax, kinetic_energy=ke,
         potential_energy=pe, active_nodes=int(n_active), ls_backtracks=result.ls_backtracks,
+        active_tiles=0 if tgrid is None else tgrid.n_active,
     )
     return new_state, stats
 
@@ -375,13 +398,10 @@ class Simulation:
         self.metrics.log(step=self.step_count, t=self.t, dt=dt, **stats._asdict())
         return stats
 
-    def advance_frame(self, frame_callback: Optional[Callable] = None, max_steps: int = 0):
-        """Advance one output frame of duration cfg.frame_dt; with
-        max_steps > 0, stop early once step_count reaches it."""
+    def advance_frame(self, frame_callback: Optional[Callable] = None):
+        """Advance one whole output frame of duration cfg.frame_dt."""
         t_end = self.t + self.cfg.frame_dt
         while self.t < t_end - 1e-12:
-            if max_steps and self.step_count >= max_steps:
-                break
             self.step(min(self.compute_dt(), t_end - self.t))
         if frame_callback is not None:
             frame_callback(self)

@@ -1,6 +1,6 @@
-"""HOT's node-embedding geometric multigrid on the dense grid.
+"""HOT's node-embedding geometric multigrid.
 
-Counterpart of ``hot_tpu.solver.multigrid`` (dense levels). Coarse level L
+Counterpart of ``hot_tpu.solver.multigrid``. Coarse level L
 has spacing 2^L dx; fine nodes embed in the coarse grid's quadratic
 B-spline stencils (prolongation = interpolation weights, restriction = its
 transpose), whatever the transfer kernel. A level's particle quadrature uses
@@ -12,8 +12,24 @@ operator is one of:
     None);
   * assembled: an explicit BSR operator (``ops.bsr``), from particle
     quadrature on the first assembled level and, with
-    ``coarsening="galerkin"``, P^T A P (``ops.spgemm.rap``) below it. Its
-    smoothers, residuals and power iteration run through ``ops.bsr_spmv``.
+    ``coarsening="galerkin"``, P^T A P (``ops.spgemm.rap``) below it. Under
+    Galerkin coarsening with a matrix-free finest level
+    (``assembled_from > 0``), the first assembled level is the exact
+    composed Galerkin operator P^T A_0 P built from the particles and the
+    fine node masses (``ops.composed``), since no fine matrix exists to RAP
+    from. Its smoothers, residuals and power iteration run through
+    ``ops.bsr_spmv``.
+
+On the sparse tile grid (``tgrid``, the step's ``grid.sparse.TileGrid``),
+level 0 and every coarser level whose dense node count is above
+``dense_switch`` (2 tile_capacity 4^dim by default) are compact: their
+vectors live on the compact nodes of their own tile grid (activated by the
+particles at that level's spacing) and their stencils, kernels and BSR rows
+address compact ids; below the switch the levels are dense. The embeddings
+run compact to compact, compact to dense and dense to dense; a fine node
+that is inactive (or the dump row) embeds with weight zero, and a fine node
+whose coarse stencil leaves the coarse tile grid loses that coupling (the
+subspace Galerkin of hot_tpu).
 
 Smoothers: Chebyshev over a power-iteration lambda_max, damped Jacobi, or
 symmetric parity-colored Gauss-Seidel; coarsest solve by Cholesky
@@ -25,10 +41,12 @@ The hierarchy splits in two:
               Chebyshev bounds and the coarse factor.
 
 Every assembled level uses the compressed-row layout of ``ops.bsr``, sized
-to its active nodes; ``hot_tpu``'s tile-row level 0 and its capacities were
-for the TPU's static shapes. Not ported (they raise NotImplementedError):
-the composed Galerkin first level (``assembled_from_level > 0`` with
-``coarsening="galerkin"``), compact sparse-grid levels and the phased build.
+to its rows: the active nodes of a dense quadrature or RAP level, and, as
+in hot_tpu's tile-row layout, every node of the active tiles on a compact
+level and on a dense composed level (the composed stencil reaches nodes the
+level's own particle stencils leave inactive). hot_tpu's tile-row layout,
+its capacities and the phased build were for the TPU's static shapes and
+are not ported.
 """
 
 from __future__ import annotations
@@ -38,7 +56,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from hot_tpu_torch.grid import sparse
 from hot_tpu_torch.ops import bsr as bsr_mod
+from hot_tpu_torch.ops import composed as comp_mod
 from hot_tpu_torch.ops import spgemm
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.fused_apply import soa
@@ -61,6 +81,20 @@ class MGLevel:
     # fused apply builds the stencil at this level's dx and res
     x_soa: Optional[torch.Tensor] = None
     kernel: str = "quadratic"   # the particle stencil's kernel family
+    # compact levels: the level's tile grid (vectors over its n_cnodes);
+    # None = dense
+    tgrid: Optional[sparse.TileGrid] = None
+    # the composed Galerkin level: its particles' composed weights and the
+    # fine level's node coords and masses (ops.composed); None elsewhere
+    comp: Optional["ComposedLevel"] = None
+
+
+class ComposedLevel(NamedTuple):
+    base: torch.Tensor          # (n, dim) composed base of each particle
+    w: torch.Tensor             # (n, dim, width) composed per-axis weights
+    dw: torch.Tensor            # (n, dim, width) composed per-axis gradients
+    node_coords: torch.Tensor   # (nf, dim) fine node coords
+    node_m: torch.Tensor        # (nf,) fine lumped masses
 
 
 class MGStatic(NamedTuple):
@@ -85,7 +119,9 @@ def coarse_res(res: Tuple[int, ...]) -> Tuple[int, ...]:
 
 def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
                  assembled_from: Optional[int] = None,
-                 kernel: str = "quadratic") -> MGStatic:
+                 kernel: str = "quadratic", tgrid: Optional[sparse.TileGrid] = None,
+                 tile_capacity: int = 0, dense_switch: Optional[int] = None,
+                 composed: bool = False) -> MGStatic:
     """Per-step hierarchy topology, mass and BC.
 
     constrained: (n_nodes_0,) bool fine-level Dirichlet/contact nodes. A
@@ -93,40 +129,109 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
     comes from constrained fine nodes. assembled_from: index of the first
     assembled level (None: all levels matrix-free). kernel: the particle
     stencils' family; assembled levels fill the quadratic 5-wide structure,
-    so a cubic hierarchy is matrix-free (hot_tpu refuses the rest too)."""
+    so a cubic hierarchy is matrix-free (hot_tpu refuses the rest too).
+    tgrid: the step's tile grid (level 0 compact; None = the dense grid),
+    with tile_capacity the coarse compact levels' limit and dense_switch
+    (None = 2 tile_capacity 4^dim) the dense node count at or below which a
+    level is dense. composed: with assembled_from > 0, make that level the
+    composed Galerkin operator (coarsening="galerkin")."""
     if kernel != "quadratic" and assembled_from is not None:
         raise NotImplementedError(
             "assembled MG levels use the 5-wide quadratic BSR; run the matrix-free MG "
             "(multigrid.assembled=False) with cubic")
     device = x.device
+    dim = len(res)
+    if tgrid is not None and dense_switch is None:
+        dense_switch = 2 * tile_capacity * 4 ** dim
     levels, embeds = [], []
     cur_res, cur_dx, cons = tuple(res), dx, constrained
     x_soa = soa(x)
+    tg = tgrid
     for l in range(n_levels):
-        st = transfer.particle_stencil(x, cur_dx, cur_res, kernel=kernel)
-        n_nodes = transfer.n_nodes_of(cur_res)
+        if tg is not None:
+            st = sparse.sparse_stencil(x, cur_dx, tg)
+            n_nodes = tg.n_cnodes
+        else:
+            st = transfer.particle_stencil(x, cur_dx, cur_res, kernel=kernel)
+            n_nodes = transfer.n_nodes_of(cur_res)
         grid_m = transfer.scatter_sum(st.node_ids, st.wn * m[:, None], n_nodes)
         active = grid_m > 0
         assembled = assembled_from is not None and l >= assembled_from
+        comp = None
+        mat_sym = None
+        if assembled:
+            half, rows = 2, active
+            if composed and l == assembled_from > 0:
+                half = comp_mod.structure_half(l)
+                comp = _composed_level(x, dx, l, levels[0])
+                if tg is None:
+                    # hot_tpu's rows: every node of the level's active tiles
+                    rows = _tile_rows(x, cur_dx, cur_res)
+            if tg is not None:
+                rows = torch.arange(n_nodes, device=device) < tg.dump
+            mat_sym = bsr_mod.structure(rows, cur_res, half=half, dtype=dtype, tgrid=tg)
         levels.append(MGLevel(
             stencil=st, grid_m=grid_m, active=active, free=active & ~cons,
-            dx=cur_dx, res=cur_res,
-            mat_sym=bsr_mod.structure(active, cur_res, dtype=dtype) if assembled else None,
-            x_soa=None if assembled else x_soa, kernel=kernel))
+            dx=cur_dx, res=cur_res, mat_sym=mat_sym,
+            x_soa=None if assembled else x_soa, kernel=kernel, tgrid=tg, comp=comp))
         if l == n_levels - 1:
             break
         nxt_res, nxt_dx = coarse_res(cur_res), cur_dx * 2.0
-        node_pos = transfer.node_positions(cur_res, cur_dx, dtype, device)
-        embed = transfer.particle_stencil(node_pos, nxt_dx, nxt_res)
+        if tg is not None:
+            node_pos = sparse.node_positions(tg, cur_dx, dtype)
+        else:
+            node_pos = transfer.node_positions(cur_res, cur_dx, dtype, device)
+        fine_compact = tg is not None
+        tg = (sparse.build_tile_grid(x, nxt_dx, nxt_res, tile_capacity)
+              if tgrid is not None and transfer.n_nodes_of(nxt_res) > dense_switch else None)
+        if tg is not None:
+            embed = sparse.sparse_stencil(node_pos, nxt_dx, tg)
+        else:
+            embed = transfer.particle_stencil(node_pos, nxt_dx, nxt_res)
+        wn = embed.wn
+        if fine_compact:
+            # the dump row sits far outside the grid: no weight from it or
+            # from any other inactive fine node
+            wn = torch.where(active[:, None], wn, torch.zeros((), dtype=wn.dtype, device=device))
+        embed = transfer.Stencil(node_ids=embed.node_ids, wn=wn, gwn=None, rel=None)
         # restriction and prolongation read only node_ids and wn
-        embeds.append(transfer.Stencil(node_ids=embed.node_ids, wn=embed.wn, gwn=None, rel=None))
-        n_coarse = transfer.n_nodes_of(nxt_res)
+        embeds.append(embed)
+        n_coarse = tg.n_cnodes if tg is not None else transfer.n_nodes_of(nxt_res)
         w_total = transfer.scatter_sum(embed.node_ids, embed.wn, n_coarse)
         w_cons = transfer.scatter_sum(embed.node_ids, embed.wn * cons[:, None].to(dtype),
                                       n_coarse)
         cons = w_cons > 0.25 * torch.clamp(w_total, min=1e-30)
         cur_res, cur_dx = nxt_res, nxt_dx
     return MGStatic(levels=tuple(levels), embeds=tuple(embeds))
+
+
+def _tile_rows(x, dx: float, res):
+    """(n_nodes,) bool: the dense nodes inside the tiles that the particles'
+    stencils at spacing dx activate."""
+    tg = sparse.build_tile_grid(x, dx, res, capacity=transfer.n_nodes_of(res))
+    ones = torch.ones((tg.n_cnodes,), dtype=torch.bool, device=x.device)
+    return sparse.compact_to_dense(tg, ones, fill=False)
+
+
+def _composed_level(x, dx: float, L: int, fine: MGLevel) -> ComposedLevel:
+    """The composed Galerkin data of level L: the particles' composed
+    weights and the fine level's node coords and masses (its compact nodes
+    on the tile grid, the dump row left out)."""
+    base, w, dw = comp_mod.composed_particle_weights(x, dx, L)
+    n_f = fine.grid_m.shape[0] if fine.tgrid is None else fine.tgrid.dump
+    coords = bsr_mod.node_coords(fine.res, fine.tgrid, torch.arange(n_f, device=x.device))
+    return ComposedLevel(base=base, w=w, dw=dw, node_coords=coords, node_m=fine.grid_m[:n_f])
+
+
+def level_node_coords(level: MGLevel):
+    """(n_nodes_l, dim) integer coords of the level's vector entries (the
+    dump row of a compact level at the origin)."""
+    n = level.grid_m.shape[0]
+    ids = torch.arange(n, device=level.grid_m.device)
+    if level.tgrid is None:
+        return transfer.unravel(ids, level.res)
+    coords = bsr_mod.node_coords(level.res, level.tgrid, ids.clamp(max=level.tgrid.dump - 1))
+    return torch.where((ids < level.tgrid.dump)[:, None], coords, torch.zeros_like(coords))
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +242,8 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
 def level_multiply(level: MGLevel, pre: MGPrecond, dt: float, w):
     """Matrix-free A_l w through ``ops.fused_apply``; identity on inactive nodes."""
     return obj_mod.elastic_hessian_apply(level.x_soa, level.dx, level.res, pre.F_soa, pre.hess,
-                                         pre.V0, dt, level.grid_m, level.active, w, level.kernel)
+                                         pre.V0, dt, level.grid_m, level.active, w, level.kernel,
+                                         level.tgrid)
 
 
 def level_project(level: MGLevel, r):
@@ -222,10 +328,10 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
     n_levels = len(mg.levels)
     first_asm = next((l for l, lv in enumerate(mg.levels) if lv.mat_sym is not None), None)
     galerkin = cfg.coarsening == "galerkin" and first_asm is not None
-    if galerkin and first_asm > 0:
+    if cfg.coarse_solver == "direct" and mg.levels[-1].tgrid is not None:
         raise NotImplementedError(
-            "composed Galerkin (assembled_from_level > 0 with coarsening='galerkin', "
-            "hot_tpu/ops/composed.py) is not ported to hot_tpu_torch yet")
+            "direct coarse solve needs a dense coarsest level: add MG levels (or lower "
+            "dense_switch) so the coarsest grid leaves the compact tile representation")
     diag_inv, lmax, mats = [], [], []
     prev_mat = None
     for l, level in enumerate(mg.levels):
@@ -238,7 +344,13 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
         mat = None
         if level.mat_sym is not None:
             if galerkin and prev_mat is not None:
-                mat = spgemm.rap(prev_mat, level.res, level.active, max_half=cfg.rap_max_half)
+                mat = spgemm.rap(prev_mat, level.res, level.mat_sym.row_of >= 0,
+                                 max_half=cfg.rap_max_half, coarse_tgrid=level.tgrid)
+            elif galerkin and level.comp is not None:
+                c = level.comp
+                mat = comp_mod.assemble_composed_galerkin(
+                    level.mat_sym, l, F_n, ctx, V0, dt, c.node_coords, c.node_m, c.base, c.w,
+                    c.dw)
             else:
                 mat = bsr_mod.assemble_hessian(level.mat_sym, level.stencil, F_n, ctx, V0, dt,
                                                level.grid_m)
@@ -357,14 +469,11 @@ def colored_gs_smooth(mul, proj, Dinv, color, n_colors: int, b, x, iters: int):
     return x
 
 
-def _parity_colors(node_of, res: Tuple[int, ...], device):
-    """(n,) parity color of each vector entry: sum over axes of
-    (coord_k & 1) << k. node_of None means the dense layout."""
-    if node_of is None:
-        node_of = torch.arange(transfer.n_nodes_of(res), device=device)
-    coords = transfer.unravel(node_of, res)
-    color = torch.zeros(node_of.shape, dtype=torch.long, device=device)
-    for k in range(len(res)):
+def _parity_colors(coords):
+    """(n,) parity color of each vector entry from its node coords (n, dim):
+    sum over axes of (coord_k & 1) << k."""
+    color = torch.zeros(coords.shape[:1], dtype=torch.long, device=coords.device)
+    for k in range(coords.shape[1]):
         color = color | ((coords[:, k] & 1) << k)
     return color
 
@@ -388,15 +497,14 @@ def _smooth(level: MGLevel, pre: MGPrecond, l: int, dt: float, cfg: MultigridCon
     per call and run the whole smoother against the SpMV."""
     mat = pre.mats[l]
     n_colors = 2 ** len(level.res)
-    device = b.device
     if mat is None:
-        color = (_parity_colors(None, level.res, device)
+        color = (_parity_colors(level_node_coords(level))
                  if cfg.smoother == "colored_gs" else None)
         return _smooth_ops(lambda w: level_multiply(level, pre, dt, w),
                            lambda r: level_project(level, r), pre, l, cfg, b, x, iters,
                            color=color, n_colors=n_colors)
     mul, proj = _level_ops_rows(level, mat)
-    color = (_parity_colors(mat.node_of, level.res, device)
+    color = (_parity_colors(bsr_mod.row_coords(mat))
              if cfg.smoother == "colored_gs" else None)
     x_r = _smooth_ops(mul, proj, pre, l, cfg, bsr_mod.grid_vector_to_rows(mat, b),
                       bsr_mod.grid_vector_to_rows(mat, x), iters, color=color, n_colors=n_colors)

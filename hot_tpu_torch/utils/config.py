@@ -23,11 +23,12 @@ class MultigridConfig:
     """Node-embedding multigrid knobs (reference flags -mg_level, --mg_times,
     --smoother, --coarseSolver), read by ``solver.multigrid``.
 
-    The port sizes every assembled level to its active nodes, so
-    ``coarse_capacity`` has nothing to bound and is not read; neither is
-    ``sparse_dense_switch`` (the sparse grid is not ported). The composed
-    Galerkin first level (``assembled_from_level > 0`` with
-    ``coarsening="galerkin"``) raises NotImplementedError."""
+    The port sizes every assembled level to its rows, so ``coarse_capacity``
+    has nothing to bound and is not read. ``sparse_dense_switch`` is the
+    dense node count at or below which a coarse level of the sparse grid
+    backend is dense (None: 2 tile_capacity 4^dim, as in hot_tpu).
+    ``assembled_from_level > 0`` with ``coarsening="galerkin"`` makes that
+    level the composed Galerkin operator (``ops.composed``)."""
 
     levels: int = 3
     cycles: int = 1
@@ -84,7 +85,8 @@ class SolverConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh partitioning of the grid (multi-device is not ported)."""
+    """Device-mesh partitioning of the grid. Multi-device is not ported: a
+    shape other than (1,) raises NotImplementedError."""
 
     axes: Tuple[str, ...] = ("x",)
     shape: Tuple[int, ...] = (1,)
@@ -109,6 +111,8 @@ class SimConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     grid_res: Tuple[int, ...] = (64, 64, 64)
     grid_backend: str = "dense"      # dense | sparse
+    # the most active tiles (4^dim nodes each) a sparse-grid level may hold;
+    # more raise RuntimeError (grid/sparse.py)
     tile_capacity: int = 4096
     compute_energy: bool = True      # potential-energy diagnostic per step
     transfer_kernel: str = "quadratic"  # quadratic | cubic

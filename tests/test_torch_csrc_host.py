@@ -36,6 +36,7 @@ import subprocess
 import pytest
 import torch
 
+from hot_tpu_torch.grid import sparse
 from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
 from hot_tpu_torch.ops import cuda_lib
@@ -256,8 +257,9 @@ def _ptr(t):
 
 def _check_kernels(host_lib, c, model_name, dtype, threads=128,
                    window_nodes=fa.WINDOW_NODES, stats=(None, None), project=True,
-                   kernel="quadratic"):
-    """Both host-compiled kernels against their plain versions on inputs c."""
+                   kernel="quadratic", tgrid=None):
+    """Both host-compiled kernels against their plain versions on inputs c
+    (grid vectors on the compact nodes of the tile grid `tgrid` if given)."""
     model = MODEL_REGISTRY[model_name]
     width = kernel_width(kernel)
     x = fa.soa(c["x"])
@@ -269,13 +271,15 @@ def _check_kernels(host_lib, c, model_name, dtype, threads=128,
     bp, bm = (torch.empty((n_pairs, n), dtype=dtype) for _ in range(2))
     code = 0 if dtype == torch.float32 else 1
     res = cuda_lib.int_array(c["res"])
+    lookup = (None, 0) if tgrid is None else (_ptr(tgrid.lookup), tgrid.tile)
     rc = host_lib.hot_fused_linearize(
-        fl.MODEL_CODES[model_name], code, d, width, _ptr(c["v"]), _ptr(x), c["dx"], res, _ptr(F),
+        fl.MODEL_CODES[model_name], code, d, width, _ptr(c["v"]), _ptr(x), c["dx"], res, *lookup,
+        _ptr(F),
         _ptr(c["mu"]), _ptr(c["lam"]), _ptr(c["V0"]), DT, int(project), _ptr(f), _ptr(U),
         _ptr(V), _ptr(A), _ptr(bp), _ptr(bm), n, threads, window_nodes, _ptr(stats[0]), None)
     assert rc == 0
     want = fl.fused_linearize_plain(c["v"], x, c["dx"], c["res"], F, c["mu"], c["lam"],
-                                    c["V0"], DT, model, project, kernel)
+                                    c["V0"], DT, model, project, kernel, tgrid)
     tol_lin, tol_apply = TOL[dtype]
     for got, ref in zip((f, A, bp, bm), (want[0], want[3], want[4], want[5])):
         assert _rel(got, ref) <= tol_lin
@@ -289,12 +293,15 @@ def _check_kernels(host_lib, c, model_name, dtype, threads=128,
     w = torch.randn(c["v"].shape, dtype=dtype, generator=torch.Generator().manual_seed(1))
     df = torch.zeros_like(w)
     ctx = want[1:]
-    rc = host_lib.hot_fused_apply(code, d, width, _ptr(w), _ptr(x), c["dx"], res, _ptr(F),
-                                  *map(_ptr, ctx), _ptr(c["V0"]), DT, _ptr(df), n, threads,
-                                  window_nodes, _ptr(stats[1]), None)
+    rc = host_lib.hot_fused_apply(code, d, width, _ptr(w), _ptr(x), c["dx"], res, *lookup,
+                                  _ptr(F), *map(_ptr, ctx), _ptr(c["V0"]), DT, _ptr(df), n,
+                                  threads, window_nodes, _ptr(stats[1]), None)
     assert rc == 0
     assert _rel(df, fa.fused_apply_plain(w, x, c["dx"], c["res"], F, *ctx, c["V0"], DT,
-                                         kernel)) <= tol_apply
+                                         kernel, tgrid)) <= tol_apply
+    if tgrid is not None:
+        # nothing lands in the dump row
+        assert float(f[tgrid.dump].abs().max()) == 0 and float(df[tgrid.dump].abs().max()) == 0
 
 
 def _boxes(x, dx, res, threads, width=3):
@@ -363,24 +370,35 @@ def test_host_compiled_cubic_kernels_match_plain(host_lib, rng, d, model_name, d
     _check_kernels(host_lib, _inputs(d, dtype, rng), model_name, dtype, kernel="cubic")
 
 
-def _check_permuted(host_lib, rng, dtype, width):
+def _on_tile_grid(c, rng):
+    """c with its grid velocity on the compact nodes of the particles' tile
+    grid; returns the grid."""
+    tgrid = sparse.build_tile_grid(c["x"], c["dx"], c["res"], capacity=10 ** 6)
+    c["v"] = torch.as_tensor(rng.standard_normal((tgrid.n_cnodes, len(c["res"]))),
+                             dtype=c["v"].dtype)
+    return tgrid
+
+
+def _check_permuted(host_lib, rng, dtype, width, compact=False):
     """The second half of the particles permuted at random, 64-thread blocks
     and a window budget that the lattice-ordered blocks fit: the permuted
     blocks take the global-atomic branch of the same launch. Both kernels
-    count the blocks, overflows, box sizes and atomics computed here."""
+    count the blocks, overflows, box sizes and atomics computed here. With
+    `compact`, the grid vectors are on the tile grid's compact nodes."""
     c = _inputs(3, dtype, rng, "twisting_bar_3d", dict(res=16, ppc=8))
     n, threads = c["x"].shape[0], 64
     tail = torch.arange(n // 2, n)
     perm = torch.cat([torch.arange(n // 2), tail[torch.from_numpy(rng.permutation(len(tail)))]])
     for key in ("x", "F", "mu", "lam", "V0"):
         c[key] = c[key][perm].contiguous()
+    tgrid = _on_tile_grid(c, rng) if compact else None
     boxes = _boxes(c["x"], c["dx"], c["res"], threads, width)
     budget = max(boxes[:(n // 2) // threads])
     over = [b for b in boxes if b > budget]
     assert 0 < len(over) < len(boxes)
     stats = (torch.zeros(N_STATS, dtype=torch.int64), torch.zeros(N_STATS, dtype=torch.int64))
     _check_kernels(host_lib, c, "fixed_corotated", dtype, threads, budget, stats,
-                   kernel="cubic" if width == 4 else "quadratic")
+                   kernel="cubic" if width == 4 else "quadratic", tgrid=tgrid)
     for buf in stats:
         got = fa.read_window_stats(buf)
         assert (got["blocks"], got["overflow_blocks"]) == (len(boxes), len(over))
@@ -405,6 +423,59 @@ def test_host_compiled_kernels_permuted_order(host_lib, rng, dtype):
 def test_host_compiled_cubic_kernels_permuted_order(host_lib, rng, dtype):
     """The same with the cubic stencil: a box one node wider per axis."""
     _check_permuted(host_lib, rng, dtype, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_kernels_compact_ids(host_lib, rng, d, dtype):
+    """Both kernels on the tile grid's compact node ids, lattice order: the
+    box load and the flush through the tile lookup, a run of a row per
+    thread."""
+    c = _inputs(d, dtype, rng)
+    tgrid = _on_tile_grid(c, rng)
+    assert tgrid.n_cnodes < torch.tensor(c["res"]).prod()
+    stats = (torch.zeros(N_STATS, dtype=torch.int64), torch.zeros(N_STATS, dtype=torch.int64))
+    _check_kernels(host_lib, c, "fixed_corotated", dtype, stats=stats, tgrid=tgrid)
+    for buf in stats:
+        got = fa.read_window_stats(buf)
+        assert got["blocks"] > 0 and got["overflow_blocks"] < got["blocks"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_host_compiled_kernels_compact_ids_permuted(host_lib, rng, dtype):
+    """Compact ids with half the particles permuted (see _check_permuted):
+    the global-atomic branch addresses the compact nodes through the
+    lookup, the windowed blocks through their runs."""
+    _check_permuted(host_lib, rng, dtype, 3, compact=True)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_kernels_compact_inactive_tiles(host_lib, rng, d):
+    """Each block holds two clusters of particles at opposite corners of the
+    grid, so its node box spans tiles that no stencil touches: those box
+    nodes read 0 and are never written (the dump row stays 0), and every
+    block still goes through its window."""
+    res_n, per = (32, 16) if d == 2 else (16, 16)
+    dx = 1.0 / res_n
+    lo = torch.as_tensor(rng.uniform(5 * dx, 7 * dx, (per, d)))
+    hi = torch.as_tensor(rng.uniform((res_n - 7) * dx, (res_n - 5) * dx, (per, d)))
+    x = torch.cat([torch.cat([lo, hi]) + 0.01 * k * dx for k in range(4)])
+    n = x.shape[0]
+    c = dict(x=x, F=torch.eye(d, dtype=torch.float64) + torch.as_tensor(
+        0.1 * rng.standard_normal((n, d, d))), mu=torch.full((n,), 30.0, dtype=torch.float64),
+        lam=torch.full((n,), 50.0, dtype=torch.float64),
+        V0=torch.as_tensor(rng.uniform(0.5, 1.5, n)),
+        v=torch.zeros((1, d), dtype=torch.float64), dx=dx, res=(res_n,) * d)
+    tgrid = _on_tile_grid(c, rng)
+    box = (int(torch.floor(hi.max(0).values / dx + 1.5).max())
+           - int(torch.floor(lo.min(0).values / dx - 0.5).min()) + 1) ** d
+    assert tgrid.n_active < tgrid.n_tiles_logical and (tgrid.lookup < 0).any()
+    stats = (torch.zeros(N_STATS, dtype=torch.int64), torch.zeros(N_STATS, dtype=torch.int64))
+    _check_kernels(host_lib, c, "fixed_corotated", torch.float64, threads=2 * per,
+                   window_nodes=box, stats=stats, tgrid=tgrid)
+    for buf in stats:
+        got = fa.read_window_stats(buf)
+        assert got["overflow_blocks"] == 0 and got["max_window_nodes"] > tgrid.n_cnodes // 2
 
 
 @pytest.mark.parametrize("d", [2, 3])
@@ -461,14 +532,21 @@ def test_unsupported_dim_is_refused(host_lib):
     z = torch.zeros(1)
     p = z.data_ptr()
     res = cuda_lib.int_array((1, 1, 1))
-    assert host_lib.hot_fused_apply(0, 4, 3, p, p, 1.0, res, *[p] * 7, DT, p, 1, 128, 0,
-                                    None, None) != 0
-    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, *[p] * 7, DT, p, 1, 100, 0,
-                                    None, None) != 0
-    assert host_lib.hot_fused_apply(0, 3, 5, p, p, 1.0, res, *[p] * 7, DT, p, 1, 128, 0,
-                                    None, None) != 0
-    assert host_lib.hot_fused_linearize(7, 0, 3, 3, p, p, 1.0, res, *[p] * 4, DT, 1,
+    assert host_lib.hot_fused_apply(0, 4, 3, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 128,
+                                    0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 100,
+                                    0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 5, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 128,
+                                    0, None, None) != 0
+    assert host_lib.hot_fused_linearize(7, 0, 3, 3, p, p, 1.0, res, None, 0, *[p] * 4, DT, 1,
                                         *[p] * 6, 1, 128, 0, None, None) != 0
-    assert host_lib.hot_fused_linearize(0, 0, 3, 2, p, p, 1.0, res, *[p] * 4, DT, 1,
+    assert host_lib.hot_fused_linearize(0, 0, 3, 2, p, p, 1.0, res, None, 0, *[p] * 4, DT, 1,
+                                        *[p] * 6, 1, 128, 0, None, None) != 0
+    # a tile lookup needs a tile size, and the quadratic stencil
+    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, p, 0, *[p] * 7, DT, p, 1, 128,
+                                    0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 4, p, p, 1.0, res, p, 4, *[p] * 7, DT, p, 1, 128,
+                                    0, None, None) != 0
+    assert host_lib.hot_fused_linearize(0, 0, 3, 4, p, p, 1.0, res, p, 4, *[p] * 4, DT, 1,
                                         *[p] * 6, 1, 128, 0, None, None) != 0
     assert host_lib.hot_bsr_spmv(0, 4, *[z.data_ptr()] * 4, 1, 125, None) != 0

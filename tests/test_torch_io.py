@@ -141,6 +141,39 @@ def test_cli_resume_is_bitwise(tmp_path):
     np.testing.assert_array_equal(x[:, :2], t2n(a[0].x).astype(np.float32))
 
 
+def test_cli_max_steps_stops_on_the_frame_grid(tmp_path, monkeypatch):
+    """--max-steps stops after the whole frame in which the step count
+    reaches it, as hot_tpu's CLI does: both write frame 0 and its checkpoint
+    at t = frame_dt (fp64, the same t), and a run resumed from that
+    checkpoint writes frames 1 and 2 at 2 and 3 frame_dt, at hot_tpu's t.
+    hot_tpu's CLI would turn on jax's persistent compilation cache for the
+    rest of the test process; it stays off here."""
+    from hot_tpu import cli as jcli
+    from hot_tpu.utils import cache as jcache
+
+    monkeypatch.setattr(jcache, "enable_compilation_cache", lambda path=None: None)
+
+    common = ["--scene", "block_drop_2d", "--scene-arg", "res=16", "--frames", "3", "--f64",
+              "--quiet", "--frame-format", "npz"]
+    runs = {}
+    for name, main, device in (("port", cli.main, ["--device", "cpu"]),
+                               ("hot_tpu", jcli.main, ["--cpu"])):
+        out = tmp_path / name
+        assert main(common + device + ["--max-steps", "2", "-o", str(out / "stopped")]) == 0
+        assert main(common + device + ["--resume", str(out / "stopped" / "ckpt_00000.npz"),
+                                       "-o", str(out / "resumed")]) == 0
+        runs[name] = [tckpt.load_checkpoint(str(out / run / f"ckpt_{k:05d}.npz"))[1:]
+                      for run, k in (("stopped", 0), ("resumed", 1), ("resumed", 2))]
+        assert sorted(os.listdir(out / "stopped")) == [
+            "ckpt_00000.npz", "config.json", "frame_00000.npz", "metrics.jsonl", "timers.txt"]
+        assert not (out / "resumed" / "frame_00000.npz").exists()
+    frame_dt = 1.0 / 24.0
+    for k, (t, steps) in enumerate(runs["port"]):
+        assert abs(t - (k + 1) * frame_dt) <= 1e-12, runs
+        assert (t, steps) == runs["hot_tpu"][k], runs
+    assert runs["port"][0][1] > 2, runs
+
+
 def test_cli_frame_format_and_checkpoint_every(tmp_path):
     out = tmp_path / "ply"
     assert _cli(out, "--frame-format", "ply", "--checkpoint-every", "2") == 0

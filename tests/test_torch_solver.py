@@ -219,17 +219,18 @@ def test_unported_newton_options_raise(rng, option):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"grid_backend": "sparse"}, {"transfer_kernel": "cubic", "solver.matrix_free": False},
+    {"mesh.shape": (-1,)}, {"transfer_kernel": "cubic", "solver.matrix_free": False},
     {"solver.integrator": "explicit", "transfer_kernel": "cubic", "solver.matrix_free": False},
-    {"solver.nonlinear": "lbfgs", "grid_backend": "sparse"},
+    {"solver.overlap_halo": True},
     {"transfer_kernel": "cubic", "solver.preconditioner": "multigrid",
      "solver.multigrid.assembled": True},
-    {"solver.preconditioner": "multigrid", "solver.multigrid.assembled": True,
-     "solver.multigrid.assembled_from_level": 1}])
+    {"grid_backend": "sparse", "transfer_kernel": "cubic"},
+    {"grid_backend": "sparse", "solver.matrix_free": False}])
 def test_unported_configs_raise(overrides):
-    """The sparse grid, the composed Galerkin level, and (as in hot_tpu, for
-    every integrator) operators assembled into the quadratic BSR under cubic
-    transfers are refused."""
+    """A device mesh and the sharded step's halo overlap (multi-GPU is not
+    ported), and, as in hot_tpu, operators assembled into the quadratic BSR
+    under cubic transfers (for every integrator), cubic transfers on the
+    sparse grid and the explicit outer BSR on the sparse grid are refused."""
     scene = tbuild("block_drop_2d", device="cpu", res=16)
     cfg = t_overrides(scene["cfg"], overrides)
     with pytest.raises(NotImplementedError):

@@ -100,7 +100,9 @@ def test_cli_runs_on_cpu(tmp_path):
     assert rc == 0
     records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
     steps = [r for r in records if "step" in r]
-    assert [r["step"] for r in steps] == [1, 2]
+    # --max-steps stops after the whole frame in which the count reaches 2
+    assert [r["step"] for r in steps] == list(range(1, len(steps) + 1)) and len(steps) > 2
+    assert abs(steps[-1]["t"] - 1.0 / 24.0) <= 1e-7
     assert json.loads((out / "config.json").read_text())["grid_res"] == [16, 16]
     # frames default to bgeo (2D padded to 3D), a checkpoint after every frame
     x, v = read_bgeo(str(out / "frame_00000.bgeo"))

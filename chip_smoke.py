@@ -106,6 +106,21 @@ Phases, each printing one JSON line:
               steps: converged, no dt retry; Newton, CG, build ms per
               Newton, steps/s, peak memory and the hierarchy's compact and
               dense levels
+  19 batch    both particle kernels on a batch of 8 members of the 64^3 bar
+              (each its own E and F perturbation), quadratic and cubic, fp32
+              and fp64: one launch per batched call, against the plain
+              version per member and against the members' single launches;
+              device ms of the batched launch against the 8 single launches,
+              the bound of 8 members' bytes. Then the stiffness sweep: the
+              64^3 bar (ppc 8) at E = 1e6 2^(k/2), k = -4..3, fp32,
+              block-Jacobi, 6 steps from rest as one batch, then each member
+              alone: Newton equal, CG within 2, x within 1e-4 dx per step,
+              launch counters equal to the derived counts, member-steps/s of
+              both, peak memory; and block_drop_2d at 64^2, 16 members (E
+              1e4..1e7), fp64, 150 steps through impact, members 0, 5, 10, 15
+              alone, 3 times each (Newton equal, CG within 1, x within 1e-8
+              dx or 10 times the lone runs' largest mutual difference, if
+              larger)
 Phase 3 also holds both particle kernels with the cubic stencil (4 nodes per
 axis, every model) and the Neo-Hookean and linear-corotated linearize
 against their plain versions, phase 3b times the cubic kernels at 64^3 and
@@ -1078,6 +1093,309 @@ def composed_against_rap(rng):
                 limit=1e-10, build_s=seconds)
 
 
+# ---- the batched stiffness sweep
+
+# E_k = 1e6 * 2^(k/2), k = -4..3: half-octaves around the bar's default E
+SWEEP_E = [1e6 * 2.0 ** (k / 2) for k in range(-4, 4)]
+SWEEP_RES = 64
+SWEEP_STEPS = 6
+# the 2D sweep: 16 members, E log-spaced over 1e4..1e7, fp64, through impact;
+# these members also run alone
+DROP_E = np.logspace(4.0, 7.0, 16).tolist()
+DROP_STEPS = 150
+DROP_ALONE = (0, 5, 10, 15)
+# a member in the fp64 batch against itself alone, in units of dx; CG stops
+# within 1. Both runs are on the card, where the atomics' order parts two
+# runs of one member alone too, and the impact amplifies that (on an H100
+# two lone runs of E = 1e6 parted by over 1e-6 dx by step 150). So each of
+# these members runs alone DROP_RUNS times, and the batch is held to the
+# larger of DROP_X_TOL and DROP_SPREAD times the lone runs' largest
+# difference from one another
+DROP_X_TOL = 1e-8
+DROP_SPREAD = 10.0
+DROP_RUNS = 3
+
+
+def batch_kernel_inputs(kernel, dtype, rng, res=SWEEP_RES):
+    """The particle kernels' inputs for a batch of len(SWEEP_E) members of
+    the res^3 bar: one particle set, each member with its own E, its own
+    F perturbation (0.1, from its own seed) and its own grid vectors v, w.
+    Returns the stacked input set and the members' own (single) sets."""
+    from hot_tpu_torch.models.constitutive import MODEL_REGISTRY, lame_parameters
+    from hot_tpu_torch.ops import transfer
+    from hot_tpu_torch.ops.fused_apply import soa
+    from hot_tpu_torch.scenes import build_scene
+
+    state = build_scene("twisting_bar_3d", device="cuda", dtype=dtype, res=res, ppc=8)["state"]
+    n, grid = state.n, (res,) * 3
+    st = transfer.particle_stencil(state.x, 1.0 / res, grid, kernel=kernel)
+    common = dict(model=MODEL_REGISTRY["fixed_corotated"], dx=1.0 / res, res=grid, n=n, d=3,
+                  project=True, kernel=kernel, st=st, groups=[])
+    members = []
+    for k, E in enumerate(SWEEP_E):
+        mrng = np.random.default_rng([int(rng.integers(2 ** 31)), k])
+        mu, lam = lame_parameters(E, 0.3)
+        F = state.F + torch.as_tensor(0.1 * mrng.standard_normal((n, 3, 3)), dtype=dtype,
+                                      device="cuda")
+        v, w = (torch.as_tensor(mrng.standard_normal((res ** 3, 3)), dtype=dtype, device="cuda")
+                for _ in range(2))
+        members.append(dict(common, F=F, F_soa=soa(F), x_soa=soa(state.x), v=v, w=w,
+                            mu=torch.full_like(state.mu, mu), lam=torch.full_like(state.lam, lam),
+                            V0=state.V0))
+    stacked = dict(common, **{key: torch.stack([m[key] for m in members])
+                              for key in ("F_soa", "x_soa", "v", "w", "mu", "lam", "V0")})
+    return stacked, members
+
+
+def check_batch_kernels(c, members, timing):
+    """Both particle kernels on a batch (one launch each) against their plain
+    versions on the same batch, per member (each against its own largest
+    entry), and against one launch per member; the launch counters move by
+    one per batched call. With `timing` (fp32): device ms of one batched
+    launch and of the members' single launches together, the plain batched
+    call's ms, and the bound of the batch's bytes and flops (B times one
+    member's, from the touched nodes and each member's clamp share)."""
+    from hot_tpu_torch.ops import fused_apply as fa
+    from hot_tpu_torch.ops import fused_linearize as fl
+
+    B, dtype = len(members), c["v"].dtype
+    lin0, app0 = fl.launches, fa.launches
+    got = fl.fused_linearize_cuda(*lin_args(c))
+    want = fl.fused_linearize_plain(*lin_args(c))
+    apply = apply_args(c, want[1:])
+    got_df = fa.fused_apply_cuda(*apply)
+    launches = {"fused_linearize": fl.launches - lin0, "fused_apply": fa.launches - app0}
+    want_df = fa.fused_apply_plain(*apply)
+    alone = []
+    for b, m in enumerate(members):
+        out = fl.fused_linearize_cuda(*lin_args(m))
+        alone.append(out + (fa.fused_apply_cuda(*apply_args(m, tuple(t[b] for t in want[1:]))),))
+    errs = {}
+    names = ("f", "U", "V", "A", "b_plus", "b_minus")
+    for b in range(B):
+        for name, g, w in zip(("f", "A", "b_plus", "b_minus"), (got[0], got[3], got[4], got[5]),
+                              (want[0], want[3], want[4], want[5])):
+            errs[f"lin_{name}[{b}]"] = rel_err(g[b], w[b])
+        errs[f"apply_df[{b}]"] = rel_err(got_df[b], want_df[b])
+        for name, g, a in zip(names + ("df",), got + (got_df,), alone[b]):
+            errs[f"alone_{name}[{b}]"] = rel_err(g[b], a)
+    tol = TOL[dtype]
+    limits = {k: tol["apply"] if "df" in k else tol["linearize"] for k in errs}
+    bad = {k: v[1] for k, v in errs.items() if not v[1] <= limits[k]}
+    worst = {key: max(v[1] for k, v in errs.items() if k.startswith(key + "["))
+             for key in ("lin_f", "lin_A", "lin_b_plus", "lin_b_minus", "apply_df")
+             + tuple(f"alone_{n}" for n in names + ("df",))}
+    out = dict(members=B, particles_per_member=c["n"], kernel=c["kernel"], dtype=str(dtype),
+               launches_per_batched_call=launches, rel_err_worst_member=worst,
+               max_abs_err=max(v[0] for k, v in errs.items() if k.startswith("lin_f[")),
+               max_abs_err_apply=max(v[0] for k, v in errs.items() if k.startswith("apply_df[")),
+               limits=TOL[dtype])
+    if launches != {"fused_linearize": 1, "fused_apply": 1}:
+        bad["launches"] = launches
+    if timing:
+        touched = int(torch.unique(c["st"].node_ids).numel())
+        clamped = float(np.mean([clamp_share(m) for m in members]))
+        width = 4 if c["kernel"] == "cubic" else 3
+        calls = {"fused_linearize": lambda: fl.fused_linearize_cuda(*lin_args(c)),
+                 "fused_apply": lambda: fa.fused_apply_cuda(*apply)}
+        singles = {"fused_linearize": lambda: [fl.fused_linearize_cuda(*lin_args(m))
+                                               for m in members],
+                   "fused_apply": lambda: [
+                       fa.fused_apply_cuda(*apply_args(m, tuple(t[b] for t in want[1:])))
+                       for b, m in enumerate(members)]}
+        plain = {"fused_linearize": lambda: fl.fused_linearize_plain(*lin_args(c)),
+                 "fused_apply": lambda: fa.fused_apply_plain(*apply)}
+        for name in calls:
+            nbytes = B * particle_kernel_bytes(name, c["n"], touched, 3, 4)
+            flops = B * c["n"] * (FLOPS_PER_PARTICLE[name, width]
+                                  + (CLAMP_FLOPS * clamped if name == "fused_linearize" else 0))
+            row = dict(bytes=nbytes, flops=flops)
+            row["ms"], row["ms_source"] = device_ms(calls[name], 20, name + "_kernel")
+            single_ms, _ = device_ms(singles[name], 10, name + "_kernel")
+            row["singles_ms"] = B * single_ms
+            row["plain_ms"] = cuda_time_ms(plain[name], 2)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            out[name] = row
+        out["clamp_share"] = clamped
+    return out, bad
+
+
+class CGCalls:
+    """Each inner CG solve of Newton inside: its iterations (per member for
+    a batch), read after the steps."""
+
+    def __enter__(self):
+        from hot_tpu_torch.solver import newton
+
+        self.mod, self.orig, self.iters = newton, newton.SOLVERS["cg"], []
+
+        def recorded(*args, **kw):
+            res = self.orig(*args, **kw)
+            self.iters.append(res.iters)
+            return res
+
+        newton.SOLVERS["cg"] = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.SOLVERS["cg"] = self.orig
+
+
+def batch_launches(stats, cg_calls):
+    """The particle kernels' launches that a batch's steps imply: per step
+    one linearize at v0 and one per batched Newton iteration (the most
+    Newton iterations of any member); per CG solve one apply for the
+    initial residual and one per batched CG iteration (the most iterations
+    of any member still solving)."""
+    return {"fused_linearize": sum(max(s.newton_iters) + 1 for s in stats),
+            "fused_apply": sum(max(iters) + 1 for iters in cg_calls), "bsr_spmv": 0}
+
+
+def sweep_run(scene, cfg, state, steps, dt):
+    """`steps` Simulation steps at dt of one state or batch, from t = 0:
+    (Simulation, StepStats, seconds, launches, CG iterations per solve,
+    peak device memory, x after each step)."""
+    from hot_tpu_torch.sim import Simulation
+
+    sim = Simulation(cfg, state, scene["model"], scene["colliders"])
+    xs = []
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = []
+        for _ in range(steps):
+            stats.append(sim.step(dt))
+            xs.append(sim.state.x)
+        torch.cuda.synchronize()
+        return stats, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with CGCalls() as cg:
+        (stats, seconds), launches = counted(run)
+    return sim, stats, seconds, launches, cg.iters, torch.cuda.max_memory_allocated(), xs
+
+
+def sweep_against_alone(name, kw, Es, dtype, steps, dt, alone_members, cg_diff, x_tol,
+                        spread=None, runs=1):
+    """One scene at the stiffnesses Es as one batch, then the members
+    `alone_members` one at a time, from rest: per member and step the
+    batch's and the first lone run's (newton, cg) and max |x_batch -
+    x_alone| / dx, the launch counters against the derived counts,
+    member-steps/s of both, the peak memory. With `spread`, each member runs
+    alone `runs` times, and its x limit is the larger of x_tol and `spread`
+    times the lone runs' largest difference from one another. Returns the
+    row and what failed: the batch's launches against the derived ones, a
+    member parting from its lone run beyond the limits (Newton equal, CG
+    within cg_diff, x)."""
+    from hot_tpu_torch.models.constitutive import lame_parameters
+    from hot_tpu_torch.scenes import build_scene
+    from hot_tpu_torch.sim.state import stack_states
+
+    scene = build_scene(name, device="cuda", dtype=dtype, **kw)
+    cfg, base = scene["cfg"], scene["state"]
+
+    def member(E):
+        mu, lam = lame_parameters(E, 0.3)
+        return base.replace(mu=torch.full_like(base.mu, mu), lam=torch.full_like(base.lam, lam))
+
+    sim, stats, seconds, launches, cg_calls, peak, xs = sweep_run(
+        scene, cfg, stack_states([member(E) for E in Es]), steps, dt)
+    want = batch_launches(stats, cg_calls)
+    B = len(Es)
+    newton = [[s.newton_iters[b] for s in stats] for b in range(B)]
+    cg = [[s.cg_iters[b] for s in stats] for b in range(B)]
+    row = dict(scene=name, res=cfg.grid_res[0], dtype=str(dtype), members=B,
+               particles_per_member=base.n, E=Es, steps=steps, dt=dt, seconds=seconds,
+               member_steps_per_s=B * steps / seconds, newton=newton, cg=cg,
+               converged=all(all(s.converged) for s in stats), retries=sim.retry_count,
+               batched_cg_per_solve=[max(i) for i in cg_calls], launches=launches,
+               launches_expected=want, max_memory_allocated=peak)
+    bad = []
+    if launches != want or sim.retry_count or not row["converged"]:
+        bad.append("batch")
+    # the derivation's inputs agree with the stats: one CG solve per batched
+    # Newton iteration, each member's CG iterations summing to its counts
+    if len(cg_calls) != sum(max(s.newton_iters) for s in stats) or [
+            sum(i[b] for i in cg_calls) for b in range(B)] != [sum(c) for c in cg]:
+        bad.append("cg_calls")
+    alone_rows, alone_seconds, alone_runs, alone_peak = [], 0.0, 0, 0
+    for b in alone_members:
+        sim_b, stats_b, sec_b, launches_b, _, peak_b, xs_b = sweep_run(
+            scene, cfg, member(Es[b]), steps, dt)
+        alone_seconds, alone_runs = alone_seconds + sec_b, alone_runs + 1
+        alone_peak = max(alone_peak, peak_b)
+        x_diff = [float((xb[b] - xa).abs().max()) / cfg.dx for xb, xa in zip(xs, xs_b)]
+        r = dict(member=b, E=Es[b], newton_alone=[s.newton_iters for s in stats_b],
+                 cg_alone=[s.cg_iters for s in stats_b], x_diff_over_dx=x_diff,
+                 launches=launches_b, x_limit=x_tol)
+        if spread is not None:
+            lone = [xs_b]
+            r["alone_again_counts_equal"] = []
+            for _ in range(runs - 1):
+                again = sweep_run(scene, cfg, member(Es[b]), steps, dt)
+                alone_seconds, alone_runs = alone_seconds + again[2], alone_runs + 1
+                r["alone_again_counts_equal"].append(
+                    [s.newton_iters for s in again[1]] == r["newton_alone"])
+                lone.append(again[-1])
+                del again
+            r["alone_again_x_diff_over_dx"] = max(
+                float((xa - xc).abs().max()) / cfg.dx
+                for i, a in enumerate(lone) for c in lone[i + 1:] for xa, xc in zip(a, c))
+            r["x_limit"] = max(x_tol, spread * r["alone_again_x_diff_over_dx"])
+            del lone
+        alone_rows.append(r)
+        if (r["newton_alone"] != newton[b] or sim_b.retry_count
+                or any(abs(a - c) > cg_diff for a, c in zip(r["cg_alone"], cg[b]))
+                or max(x_diff) > r["x_limit"]):
+            bad.append(f"member {b}")
+        del sim_b, xs_b
+    row.update(alone=alone_rows, alone_seconds=alone_seconds,
+               alone_member_steps_per_s=alone_runs * steps / alone_seconds,
+               alone_max_memory_allocated=alone_peak,
+               limits=dict(newton="equal", cg_diff=cg_diff, x_diff_over_dx=x_tol,
+                           x_spread_factor=spread))
+    return row, bad
+
+
+def batch_phase(rng, card):
+    """Phase 19: both particle kernels on a batch of 8 members of the 64^3
+    bar (one launch per call) against their plain versions and the members'
+    single launches; the stiffness sweep users run in place of 8 processes
+    (the 64^3 bar at 8 stiffnesses, 6 steps, then each member alone); the 2D
+    sweep through impact (16 members, fp64, 150 steps). Returns the fp32
+    kernel rows by stencil and the two sweeps' rows."""
+    batch_summary = {}
+    for kernel in ("quadratic", "cubic"):
+        for dtype in (torch.float32, torch.float64):
+            c, members = batch_kernel_inputs(kernel, dtype, rng)
+            row, bad = check_batch_kernels(c, members, timing=dtype == torch.float32)
+            emit("batch", card=card, case="kernels", **row)
+            if bad:
+                raise AssertionError(f"batched kernel disagrees: {bad}")
+            if dtype == torch.float32:
+                batch_summary[kernel] = row
+            del c, members
+            torch.cuda.empty_cache()
+    sweeps = {}
+    for label, args in (
+            ("bar", ("twisting_bar_3d", dict(res=SWEEP_RES, ppc=8), SWEEP_E, torch.float32,
+                     SWEEP_STEPS, DT, range(len(SWEEP_E)), 2, X_TOL)),
+            ("drop", ("block_drop_2d", dict(res=64), DROP_E, torch.float64, DROP_STEPS, DT,
+                      DROP_ALONE, 1, DROP_X_TOL, DROP_SPREAD, DROP_RUNS))):
+        row, bad = sweep_against_alone(*args)
+        emit("batch", card=card, case=f"sweep_{label}", **row)
+        if bad:
+            raise AssertionError(f"sweep {label}: {bad}; {row}")
+        sweeps[label] = row
+        torch.cuda.empty_cache()
+    assert sum(sum(n) for n in sweeps["bar"]["newton"]) > 0, sweeps["bar"]
+    assert min(sum(n) for n in sweeps["drop"]["newton"]) > 0, sweeps["drop"]
+    return batch_summary, sweeps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="DIR",
@@ -1628,7 +1946,8 @@ def main(argv=None):
     cli_seconds = time.perf_counter() - t0
     x_full, v_full = read_bgeo(str(io_dir / "full" / "frame_00001.bgeo"))
     x_resumed, _ = read_bgeo(str(io_dir / "resumed" / "frame_00001.bgeo"))
-    state, t_end, steps = load_checkpoint(str(io_dir / "full" / "ckpt_00001.npz"))
+    state, t_end, steps = load_checkpoint(str(io_dir / "full" / "ckpt_00001.npz"),
+                                          device="cpu")
     dx = json.loads((io_dir / "full" / "config.json").read_text())["dx"]
     row = dict(scene="block_drop_2d", frames=2, steps=steps, t=t_end, seconds=cli_seconds,
                particles=state.n, resume_x_diff_over_dx=float(np.abs(x_full - x_resumed).max())
@@ -1840,6 +2159,10 @@ def main(argv=None):
     del scene, start
     torch.cuda.empty_cache()
     lap("scale256")
+
+    # ---- 19 batch: the batched kernels and the two stiffness sweeps
+    batch_summary, sweeps = batch_phase(rng, card)
+    lap("batch")
     emit("runtime", seconds=laps, total_seconds=sum(laps.values()))
 
     spmv = summary["spmv"]
@@ -1873,6 +2196,22 @@ def main(argv=None):
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None}
 
+    def batch_row(name):
+        """The batched launch: launches on the 64^3 bar sweep (8 members,
+        phase batch), the worst member's error against the plain version
+        and device ms of one launch of the 8 members (fp32, quadratic)."""
+        row = batch_summary["quadratic"]
+        return {"name": f"{name}_batched", "route": "cuda",
+                "source": f"hot_tpu_torch/csrc/{name}.cu",
+                "replaces": {"fused_linearize": "hot_tpu/ops/pallas_linearize.py:374",
+                             "fused_apply": "hot_tpu/ops/pallas_apply.py:143"}[name],
+                "launches": sweeps["bar"]["launches"][name],
+                "max_abs_err": row["max_abs_err" if name == "fused_linearize"
+                                   else "max_abs_err_apply"],
+                "ms": row[name]["ms"], "plain_ms": row[name]["plain_ms"],
+                "bound_ms": row[name]["bound_ms"], "bound_by": row[name]["bound_by"],
+                "library_ms": None}
+
     print(json.dumps({"kernels": [
         particle_row("fused_linearize", "quadratic"),
         particle_row("fused_apply", "quadratic"),
@@ -1880,6 +2219,8 @@ def main(argv=None):
         particle_row("fused_apply", "cubic"),
         compact_row("fused_linearize"),
         compact_row("fused_apply"),
+        batch_row("fused_linearize"),
+        batch_row("fused_apply"),
         {"name": "bsr_spmv", "route": "cuda", "source": "hot_tpu_torch/csrc/bsr_spmv.cu",
          "replaces": "hot_tpu/ops/bsr_tiled.py:387",
          "launches": mg_counts["bsr_spmv"], "max_abs_err": spmv["max_abs_err"],

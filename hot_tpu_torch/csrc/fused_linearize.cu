@@ -16,6 +16,9 @@
 //   the fused apply reads in every CG iteration, so nothing is transposed
 //   between the two kernels.
 //
+// A batch of members is one launch, blockIdx.y the member, as in
+// fused_apply.cu.
+//
 // Bound on the H100: bytes, with operations close behind. A 3D particle
 // reads 15 values (x, F, mu, lam, V0) and writes 33 (U, V, A, b+/-): 192 B
 // in fp32, plus the grid vector read and written once over the touched
@@ -43,13 +46,26 @@ fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
                        const T* __restrict__ V0, T dt, int project,
                        T* __restrict__ f, T* __restrict__ Uo, T* __restrict__ Vo,
                        T* __restrict__ Ao, T* __restrict__ bpo,
-                       T* __restrict__ bmo, long long n, int window_nodes,
+                       T* __restrict__ bmo, long long n, long long nodes, int window_nodes,
                        unsigned long long* __restrict__ stats) {
   constexpr int DD = D * D;
   constexpr int NP = hot::Pairs<D>::n;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2 * D];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // this block's member
+  v += hot::member_offset(nodes * D);
+  f += hot::member_offset(nodes * D);
+  x += hot::member_offset(D * n);
+  Fm += hot::member_offset(DD * n);
+  mu_ += hot::member_offset(n);
+  lam_ += hot::member_offset(n);
+  V0 += hot::member_offset(n);
+  Uo += hot::member_offset(DD * n);
+  Vo += hot::member_offset(DD * n);
+  Ao += hot::member_offset(DD * n);
+  bpo += hot::member_offset(NP * n);
+  bmo += hot::member_offset(NP * n);
   hot::window_frame<T, D, SW, Tiled>(v, x, dx, grid, f, n, window_nodes, stats, smem, s_box,
                              [&](const T* src, const auto& map,
                                  const hot::Stencil<T, D, SW>& s, const int off[D][SW],
@@ -154,8 +170,9 @@ fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
 template <typename T, int D, int SW, bool Tiled, typename Model>
 int launch(const void* v, const void* x, double dx, const int* res, const int* lookup, int tile,
            const void* F, const void* mu, const void* lam, const void* V0, double dt, int project,
-           void* f, void* U, void* V, void* A, void* bp, void* bm, long long n, int threads,
-           int window_nodes, unsigned long long* stats, cudaStream_t stream) {
+           void* f, void* U, void* V, void* A, void* bp, void* bm, long long n,
+           long long nodes, int batch, int threads, int window_nodes,
+           unsigned long long* stats, cudaStream_t stream) {
   const hot::Grid<D> grid = hot::make_grid<D>(res, lookup, tile);
   const size_t smem = window_nodes > 0 ? hot::window_bytes<T, D, SW>(window_nodes, threads) : 0;
   // the static shared memory counts against the default 48 KB too, so the
@@ -166,10 +183,10 @@ int launch(const void* v, const void* x, double dx, const int* res, const int* l
                                                 (int)smem);
     if (rc != cudaSuccess) return (int)rc;
   }
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  const dim3 blocks((unsigned)((n + threads - 1) / threads), (unsigned)batch);
   fused_linearize_kernel<T, D, SW, Tiled, Model><<<blocks, threads, smem, stream>>>(
       (const T*)v, (const T*)x, (T)dx, grid, (const T*)F, (const T*)mu, (const T*)lam,
-      (const T*)V0, (T)dt, project, (T*)f, (T*)U, (T*)V, (T*)A, (T*)bp, (T*)bm, n,
+      (const T*)V0, (T)dt, project, (T*)f, (T*)U, (T*)V, (T*)A, (T*)bp, (T*)bm, n, nodes,
       window_nodes, stats);
   return 0;
 }
@@ -178,12 +195,12 @@ template <int SW, bool Tiled, typename Model>
 int dispatch(int dtype, int dim, const void* v, const void* x, double dx, const int* res,
              const int* lookup, int tile, const void* F, const void* mu, const void* lam,
              const void* V0, double dt, int project, void* f, void* U, void* V, void* A,
-             void* bp, void* bm, long long n, int threads, int window_nodes,
-             unsigned long long* st, cudaStream_t s) {
-  if (dtype == 0 && dim == 3) return launch<float, 3, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 0 && dim == 2) return launch<float, 2, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 3) return launch<double, 3, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (dtype == 1 && dim == 2) return launch<double, 2, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+             void* bp, void* bm, long long n, long long nodes, int batch, int threads,
+             int window_nodes, unsigned long long* st, cudaStream_t s) {
+  if (dtype == 0 && dim == 3) return launch<float, 3, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
+  if (dtype == 0 && dim == 2) return launch<float, 2, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 3) return launch<double, 3, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
+  if (dtype == 1 && dim == 2) return launch<double, 2, SW, Tiled, Model>(v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -191,11 +208,11 @@ template <typename Model>
 int dispatch_width(int width, int dtype, int dim, const void* v, const void* x, double dx,
                    const int* res, const int* lookup, int tile, const void* F, const void* mu,
                    const void* lam, const void* V0, double dt, int project, void* f, void* U, void* V, void* A,
-                   void* bp, void* bm, long long n, int threads, int window_nodes,
-                   unsigned long long* st, cudaStream_t s) {
-  if (width == 3 && lookup != nullptr) return dispatch<3, true, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (width == 3) return dispatch<3, false, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
-  if (width == 4 && lookup == nullptr) return dispatch<4, false, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+                   void* bp, void* bm, long long n, long long nodes, int batch,
+                   int threads, int window_nodes, unsigned long long* st, cudaStream_t s) {
+  if (width == 3 && lookup != nullptr) return dispatch<3, true, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
+  if (width == 3) return dispatch<3, false, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
+  if (width == 4 && lookup == nullptr) return dispatch<4, false, Model>(dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -203,33 +220,35 @@ int dispatch_width(int width, int dtype, int dim, const void* v, const void* x, 
 
 // model: 0 = fixed_corotated, 1 = stvk_hencky, 2 = neo_hookean,
 // 3 = linear_corotated; dtype: 0 = float32, 1 = float64; width, res,
-// lookup, tile, threads, window_nodes and stats as for hot_fused_apply (v
-// and f over the grid's nodes). Returns the error of raising the block's
+// lookup, tile, n, nodes, batch, threads, window_nodes and stats as for
+// hot_fused_apply (v and f over the grid's nodes; per member x, F, mu, lam,
+// V0, v and the outputs). Returns the error of raising the block's
 // shared-memory limit if that fails, else cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for an unsupported model, dtype, dim, width,
-// tile or block).
+// tile, batch or block).
 extern "C" int hot_fused_linearize(int model, int dtype, int dim, int width, const void* v,
                                    const void* x, double dx, const int* res,
                                    const int* lookup, int tile, const void* F, const void* mu,
                                    const void* lam, const void* V0, double dt, int project,
                                    void* f, void* U, void* V, void* A, void* bp, void* bm,
-                                   long long n, int threads, int window_nodes, void* stats,
-                                   void* stream) {
+                                   long long n, long long nodes, int batch, int threads,
+                                   int window_nodes, void* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   auto* st = (unsigned long long*)stats;
   if (threads <= 0 || threads > hot::kMaxThreads || threads % hot::kWarp != 0 ||
-      window_nodes < 0 || (lookup != nullptr && tile <= 0))
+      window_nodes < 0 || (lookup != nullptr && tile <= 0) || batch < 1 ||
+      batch > hot::kMaxBatch)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     int rc;
     if (model == 0)
-      rc = dispatch_width<hot::FixedCorotated>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::FixedCorotated>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
     else if (model == 1)
-      rc = dispatch_width<hot::StvkHencky>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::StvkHencky>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
     else if (model == 2)
-      rc = dispatch_width<hot::NeoHookean>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::NeoHookean>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
     else if (model == 3)
-      rc = dispatch_width<hot::LinearCorotated>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, st, s);
+      rc = dispatch_width<hot::LinearCorotated>(width, dtype, dim, v, x, dx, res, lookup, tile, F, mu, lam, V0, dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes, st, s);
     else
       rc = (int)cudaErrorInvalidValue;
     if (rc != 0) return rc;

@@ -61,6 +61,14 @@ namespace hot {
 
 constexpr int kWarp = 32;
 constexpr int kMaxThreads = 256;
+// the most members of a batched launch (gridDim.y)
+constexpr int kMaxBatch = 65535;
+
+// The element offset of this block's member (blockIdx.y) in an array of
+// `per_member` elements per member, in 64 bits.
+__device__ __forceinline__ long long member_offset(long long per_member) {
+  return (long long)blockIdx.y * per_member;
+}
 
 // Counters a kernel adds to when the caller passes a buffer of kStatCount
 // uint64 (hot_tpu_torch/ops/fused_apply.py:STATS names them).

@@ -28,7 +28,7 @@ def save_checkpoint(path: str, state: ParticleState, t: float, step_count: int):
     np.savez_compressed(path, __t=t, __step_count=step_count, **state.to_numpy())
 
 
-def load_checkpoint(path: str, device="cpu",
+def load_checkpoint(path: str, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> Tuple[ParticleState, float, int]:
     """(state on `device`, t, step_count); dtype None keeps the saved one."""
     with np.load(path) as data:

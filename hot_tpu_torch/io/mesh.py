@@ -82,7 +82,7 @@ def points_inside_mesh(points, verts, faces):
 
 def sample_mesh(generator: torch.Generator, obj_path: str, dx: float,
                 particles_per_cell: int, scale: float = 1.0, translate=(0.0, 0.0, 0.0),
-                dtype=torch.float32, device="cpu"):
+                dtype=torch.float32, device="cuda"):
     """Jittered-lattice samples inside an OBJ mesh: (positions (n, 3), volume)."""
     verts, faces = load_obj(obj_path)
     verts = verts * scale + np.asarray(translate)[None, :]

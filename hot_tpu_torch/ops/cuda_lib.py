@@ -32,17 +32,19 @@ _P = ctypes.c_void_p
 _RES = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # (dtype, dim, width, w, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0,
-    #  dt, df, n, threads, window_nodes, stats, stream)
+    #  dt, df, n, nodes, batch, threads, window_nodes, stats, stream)
     "hot_fused_apply": [ctypes.c_int] * 3 + [_P, _P, ctypes.c_double, _RES, _P, ctypes.c_int]
                        + [_P] * 7
-                       + [ctypes.c_double, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                          _P, _P],
+                       + [ctypes.c_double, _P, ctypes.c_longlong, ctypes.c_longlong]
+                       + [ctypes.c_int] * 3 + [_P, _P],
     # (model, dtype, dim, width, v, x, dx, res, lookup, tile, F, mu, lam, V0,
-    #  dt, project, f, U, V, A, bp, bm, n, threads, window_nodes, stats, stream)
+    #  dt, project, f, U, V, A, bp, bm, n, nodes, batch, threads, window_nodes,
+    #  stats, stream)
     "hot_fused_linearize": [ctypes.c_int] * 4 + [_P, _P, ctypes.c_double, _RES, _P,
                                                  ctypes.c_int] + [_P] * 4
                            + [ctypes.c_double, ctypes.c_int] + [_P] * 6
-                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P],
+                           + [ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 3
+                           + [_P, _P],
     # (dtype, dim, vals, col_row, x, y, n_rows, K, stream)
     "hot_bsr_spmv": [ctypes.c_int, ctypes.c_int] + [_P] * 4
                     + [ctypes.c_longlong, ctypes.c_int, _P],

@@ -37,8 +37,16 @@ cubic stencil's slots would not fit a block's shared memory);
 ``new_window_stats`` buffer, collects its counters (blocks, blocks that
 overflowed the window, box sizes, global atomics).
 
+A batch of B members (``sim.simulation``'s batched step) passes every
+argument with a leading member dimension: w (B, n_nodes, d), x (B, d, n),
+F (B, d*d, n), V0 (B, n), and so on. The kernel takes the whole batch in one
+launch, the members along the launch grid's y axis (at most
+MAX_BATCH); the plain version stacks the members' grids end to end
+(``transfer.particle_stencil``'s member offsets). The tile grid takes no batch.
+
 Dispatch is by device: CPU tensors take ``fused_apply_plain``; CUDA tensors
-launch the kernel or raise. ``launches`` counts kernel launches.
+launch the kernel or raise. ``launches`` counts kernel launches, one per
+call, whatever the batch.
 """
 
 from __future__ import annotations
@@ -66,6 +74,8 @@ SMEM_PER_BLOCK = 227 * 1024 - 64
 # histogram of log2(box nodes)
 STATS = ("blocks", "overflow_blocks", "window_nodes", "max_window_nodes", "global_atomics")
 N_HIST = 24
+# the most members a launch takes: the launch grid's y extent (gridDim.y)
+MAX_BATCH = 65535
 
 launches = 0
 window_stats = None
@@ -84,13 +94,14 @@ def read_window_stats(buf) -> dict:
 
 
 def aos_mat(M, d: int):
-    """(d*d, n) SoA -> (n, d, d) view."""
-    return M.T.reshape(-1, d, d)
+    """(d*d, n) SoA -> (n, d, d) view; a batch's (B, d*d, n) -> (B, n, d, d)."""
+    return M.transpose(-1, -2).reshape(M.shape[:-2] + (-1, d, d))
 
 
-def soa(M):
-    """(n, ...) particle-major -> contiguous (prod(...), n) SoA."""
-    return M.reshape(M.shape[0], -1).T.contiguous()
+def soa(M, lead: int = 0):
+    """(n, ...) particle-major -> contiguous (prod(...), n) SoA, after
+    `lead` leading dimensions (1 for a batch: (B, n, ...) -> (B, C, n))."""
+    return M.flatten(lead + 1).transpose(-1, -2).contiguous()
 
 
 def window_bytes(d: int, width: int, itemsize: int, threads: int, window_nodes: int) -> int:
@@ -113,10 +124,13 @@ def launch_config(d: int, width: int, itemsize: int):
 
 
 def stencil_of(x, dx, res, kernel: str = "quadratic", tgrid=None) -> transfer.Stencil:
-    """The stencil the kernels compute from x (d, n): the dense grid's, or
-    with compact ids on the tile grid `tgrid` (quadratic only)."""
+    """The stencil the kernels compute from x (d, n), or a batch's
+    (B, d, n): the dense grid's, or with compact ids on the tile grid
+    `tgrid` (quadratic only, no batch)."""
     if tgrid is None:
-        return transfer.particle_stencil(x.T, dx, res, kernel=kernel)
+        return transfer.particle_stencil(x.transpose(-1, -2), dx, res, kernel=kernel)
+    if x.ndim != 2:
+        raise NotImplementedError("the tile grid takes no batch")
     from hot_tpu_torch.grid import sparse
 
     return sparse.sparse_stencil(x.T, dx, tgrid)
@@ -129,20 +143,39 @@ def fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
     st = stencil_of(x, dx, res, kernel, tgrid)
     Fp = aos_mat(F, d)
     ctx = cm.HessianContext(U=aos_mat(U, d), V=aos_mat(V, d), A=aos_mat(A, d),
-                            b_plus=b_plus.T, b_minus=b_minus.T)
+                            b_plus=b_plus.transpose(-1, -2), b_minus=b_minus.transpose(-1, -2))
     grad_w = transfer.velocity_gradient(st, w)
     dP = cm.apply_hessian(ctx, dt * (grad_w @ Fp))
-    return transfer.scatter_force(st, dP @ Fp.transpose(-1, -2), V0, w.shape[0])
+    return transfer.scatter_force(st, dP @ Fp.transpose(-1, -2), V0, w.shape[-2])
+
+
+def batch_of(grid_vec) -> int:
+    """Members of a launch: the leading dimension of a batch's (B, n_nodes,
+    d) grid vector, 1 for one (n_nodes, d); at most MAX_BATCH."""
+    if grid_vec.ndim not in (2, 3):
+        raise ValueError(f"a grid vector is (n_nodes, d) or (B, n_nodes, d), got "
+                         f"{tuple(grid_vec.shape)}")
+    batch = grid_vec.shape[0] if grid_vec.ndim == 3 else 1
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"a launch takes 1 to {MAX_BATCH} members, got {batch}")
+    return batch
 
 
 def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **params):
     """check_inputs specs for a stencil kernel's arguments: the grid vector
     (n_nodes, d) over res (the tile grid's (n_cnodes, d) with `tgrid`), x
-    (d, n), the per-particle SoA arrays and the tile lookup."""
+    (d, n), the per-particle SoA arrays and the tile lookup; every shape but
+    the lookup's with the grid vector's leading member dimension in a batch.
+    Node offsets inside a member are 32-bit; the kernels offset each
+    member's base pointers in 64 bits."""
     d = grid_vec.shape[-1]
     n = x.shape[-1]
+    lead = tuple(grid_vec.shape[:-2])
+    batch_of(grid_vec)
     if d not in (2, 3) or len(res) != d:
         raise ValueError(f"need a 2D or 3D grid, got d={d}, res={tuple(res)}")
+    if tgrid is not None and lead:
+        raise NotImplementedError("the tile grid takes no batch")
     n_nodes = math.prod(int(r) for r in res)
     if tgrid is not None:
         if tuple(tgrid.res) != tuple(res) or kernel_width(kernel) != 3:
@@ -155,12 +188,13 @@ def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **param
         raise ValueError(f"grid {tuple(res)} too large for 32-bit node offsets")
     rows = {"F": d * d, "U": d * d, "V": d * d, "A": d * d,
             "b_plus": 1 if d == 2 else 3, "b_minus": 1 if d == 2 else 3}
-    specs = [("grid vector", grid_vec, (n_nodes if tgrid is None else tgrid.n_cnodes, d),
-              grid_vec.dtype), ("x", x, (d, n), grid_vec.dtype)]
+    specs = [("grid vector", grid_vec, lead + (n_nodes if tgrid is None else tgrid.n_cnodes, d),
+              grid_vec.dtype), ("x", x, lead + (d, n), grid_vec.dtype)]
     if tgrid is not None:
         specs.append(("tile lookup", tgrid.lookup, (tgrid.n_tiles_logical,), torch.int32))
     for name, t in params.items():
-        specs.append((name, t, (rows[name], n) if name in rows else (n,), grid_vec.dtype))
+        specs.append((name, t, lead + ((rows[name], n) if name in rows else (n,)),
+                      grid_vec.dtype))
     return specs
 
 
@@ -183,7 +217,7 @@ def lookup_args(tgrid):
 
 def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
                      kernel: str = "quadratic", tgrid=None, threads=None, window_nodes=None):
-    """Launch the CUDA kernel (CUDA tensors only)."""
+    """Launch the CUDA kernel (CUDA tensors only), once for the whole batch."""
     global launches
     params = dict(F=F, U=U, V=V, A=A, b_plus=b_plus, b_minus=b_minus, V0=V0)
     cuda_lib.check_inputs(w, param_specs(w, x, res, tgrid, kernel, **params))
@@ -194,7 +228,8 @@ def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
         cuda_lib.dtype_code(w), w.shape[-1], width, w.data_ptr(), x.data_ptr(), float(dx),
         cuda_lib.int_array(res), *lookup_args(tgrid),
         *(t.data_ptr() for t in params.values()), float(dt),
-        df.data_ptr(), x.shape[1], *launch_args(w, width, threads, window_nodes, window_stats),
+        df.data_ptr(), x.shape[-1], w.shape[-2], batch_of(w),
+        *launch_args(w, width, threads, window_nodes, window_stats),
         cuda_lib.stream_ptr(w.device))
     cuda_lib.check(rc, "fused_apply")
     launches += 1
@@ -203,7 +238,8 @@ def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
 
 def fused_apply(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel: str = "quadratic",
                 tgrid=None):
-    """df (n_nodes, d) for grid direction w (see the module doc)."""
+    """df (n_nodes, d) for grid direction w, a batch's (B, n_nodes, d) for
+    (B, n_nodes, d) (see the module doc)."""
     args = (w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt, kernel, tgrid)
     if w.device.type == "cpu":
         return fused_apply_plain(*args)

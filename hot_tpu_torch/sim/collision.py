@@ -177,7 +177,10 @@ def grid_boundary_conditions(node_pos, t, colliders: Sequence[Collider], grid_v=
     """(proj (n_nodes, d, d), v_bc (n_nodes, d), constrained (n_nodes,)).
 
     Colliders apply in order; with boundary_margin > 0 the outermost
-    `boundary_margin` node layers of the domain are stuck as well.
+    `boundary_margin` node layers of the domain are stuck as well. For a
+    batch, grid_v is (B, n_nodes, d) over the shared node_pos; where a
+    collider reads it (separate contact, friction) the outputs get the
+    leading member dimension, elsewhere they broadcast over the members.
     """
     n, d = node_pos.shape
     eye = torch.eye(d, dtype=node_pos.dtype, device=node_pos.device)
@@ -197,7 +200,7 @@ def grid_boundary_conditions(node_pos, t, colliders: Sequence[Collider], grid_v=
                     raise ValueError("separate contact needs grid_v")
                 approaching = torch.sum((grid_v - v_obj) * nrm, dim=-1) < 0.0
                 active = active & approaching
-        proj = torch.where(active[:, None, None], P_c @ proj, proj)
+        proj = torch.where(active[..., None, None], P_c @ proj, proj)
         v_bc_new = v_obj + _apply(P_c, v_bc - v_obj)
         if c.kind != STICKY and c.friction > 0.0 and grid_v is not None:
             # Coulomb friction on the pre-solve velocity: scale the tangential
@@ -205,13 +208,13 @@ def grid_boundary_conditions(node_pos, t, colliders: Sequence[Collider], grid_v=
             # scale 0 is stuck
             rel_v = grid_v - v_obj
             vn = torch.sum(rel_v * nrm, dim=-1)
-            vt = rel_v - vn[:, None] * nrm
+            vt = rel_v - vn[..., None] * nrm
             scale = torch.clamp(1.0 - c.friction * torch.clamp(-vn, min=0.0)
                                 / torch.clamp(torch.linalg.norm(vt, dim=-1), min=1e-12), min=0.0)
-            proj = torch.where((active & (scale <= 0.0))[:, None, None],
+            proj = torch.where((active & (scale <= 0.0))[..., None, None],
                                torch.zeros_like(proj), proj)
-            v_bc_new = v_obj + vt * scale[:, None]
-        v_bc = torch.where(active[:, None], v_bc_new, v_bc)
+            v_bc_new = v_obj + vt * scale[..., None]
+        v_bc = torch.where(active[..., None], v_bc_new, v_bc)
         constrained = constrained | active
     if boundary_margin > 0:
         lo = boundary_margin * dx
@@ -225,7 +228,7 @@ def grid_boundary_conditions(node_pos, t, colliders: Sequence[Collider], grid_v=
 
 
 def _apply(P, v):
-    return torch.einsum("nij,nj->ni", P, v)
+    return torch.einsum("...ij,...j->...i", P, v)
 
 
 def apply_bc_to_velocity(grid_v, proj, v_bc):

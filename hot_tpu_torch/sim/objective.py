@@ -19,10 +19,16 @@ compact nodes of the sparse tile grid (``ObjectiveContext.tgrid``; every
 per-node array, from the mass to the block-Jacobi blocks, is then
 n_cnodes long); inactive nodes (zero mass) act as the identity so CG leaves
 them alone.
+
+A batch of B members (hot_tpu's ``jax.vmap`` over the step, dense grid
+only) puts a leading member dimension on every per-particle and per-node
+array (x_soa (B, d, n), grid_m (B, n_nodes), ...); each kernel call takes
+the whole batch, and every reduction (``cn_norm``, ``energy``) is per member.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -35,7 +41,8 @@ from hot_tpu_torch.ops.svd import eigh_sym
 
 
 class ObjectiveContext(NamedTuple):
-    """Everything fixed during one implicit solve (one time step)."""
+    """Everything fixed during one implicit solve (one time step); a
+    batch's arrays carry a leading member dimension."""
 
     stencil: transfer.Stencil
     F_n: torch.Tensor        # (n, d, d) deformation gradients at step start
@@ -66,10 +73,10 @@ class HessianState(NamedTuple):
     b_minus: torch.Tensor  # (n_pairs, n)
 
     def context(self, d: int) -> cm.HessianContext:
-        """Particle-major (n, d, d) views."""
+        """Particle-major (n, d, d) views ((B, n, d, d) for a batch)."""
         return cm.HessianContext(U=aos_mat(self.U, d), V=aos_mat(self.V, d),
-                                 A=aos_mat(self.A, d), b_plus=self.b_plus.T,
-                                 b_minus=self.b_minus.T)
+                                 A=aos_mat(self.A, d), b_plus=self.b_plus.transpose(-1, -2),
+                                 b_minus=self.b_minus.transpose(-1, -2))
 
 
 def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
@@ -81,18 +88,26 @@ def make_objective(model, stencil, F_n, V0, mu, lam, grid_m, v_star, proj,
       force scale   f_i = sum_p w_ip V0_p (2 mu_p + lam_p) / dx
       impulse scale s_i = max(dt f_i, m_i dx / dt)
     (the second term keeps free-fall nodes, with no stiffness, scaled).
-    With `tgrid` the stencil's node ids are that tile grid's compact ids."""
+    With `tgrid` the stencil's node ids are that tile grid's compact ids; x
+    (B, n, d) makes a batch's context."""
     active = grid_m > 0
-    n_nodes = grid_m.shape[0]
+    n_nodes = grid_m.shape[-1]
     stiff = V0 * (2.0 * mu + lam) / dx
-    f_char = transfer.scatter_sum(stencil.node_ids, stencil.wn * stiff[:, None], n_nodes)
+    f_char = transfer.scatter_sum(stencil.node_ids, stencil.wn * stiff[..., None], n_nodes)
     cn_scale = torch.maximum(dt * f_char, grid_m * dx / dt)
     cn_scale = torch.where(active, cn_scale, torch.ones_like(cn_scale))
     return ObjectiveContext(
         stencil=stencil, F_n=F_n, V0=V0, mu=mu, lam=lam, grid_m=grid_m,
         v_star=v_star, active=active, proj=proj, dt=dt, cn_scale=cn_scale,
-        x_soa=soa(x), F_soa=soa(F_n), dx=dx, res=tuple(res), kernel=kernel, tgrid=tgrid,
+        x_soa=soa(x, x.ndim - 2), F_soa=soa(F_n, x.ndim - 2), dx=dx, res=tuple(res),
+        kernel=kernel, tgrid=tgrid,
     )
+
+
+def member_sum(t, dims: int):
+    """The sum of t's trailing `dims` dimensions: a scalar for one state, (B,)
+    for a batch (a leading member dimension more)."""
+    return torch.sum(t) if t.ndim == dims else torch.sum(t, dim=tuple(range(-dims, 0)))
 
 
 def updated_F(obj: ObjectiveContext, v):
@@ -106,21 +121,21 @@ def residual(model, obj: ObjectiveContext, v):
     """r(v) = M (v - v*) - dt f(v), BC-projected, zero at inactive nodes."""
     P = cm.first_piola(model, updated_F(obj, v), obj.mu, obj.lam)
     f = transfer.scatter_force(obj.stencil, P @ obj.F_n.transpose(-1, -2), obj.V0,
-                               obj.grid_m.shape[0])
-    return project(obj, obj.grid_m[:, None] * (v - obj.v_star) - obj.dt * f)
+                               obj.grid_m.shape[-1])
+    return project(obj, obj.grid_m[..., None] * (v - obj.v_star) - obj.dt * f)
 
 
 def energy(model, obj: ObjectiveContext, v):
-    """E(v)."""
+    """E(v), per member for a batch."""
     psi = cm.psi_from_F(model, updated_F(obj, v), obj.mu, obj.lam)
     dv = v - obj.v_star
-    return 0.5 * torch.sum(obj.grid_m[:, None] * dv * dv) + torch.sum(obj.V0 * psi)
+    return 0.5 * member_sum(obj.grid_m[..., None] * dv * dv, 2) + member_sum(obj.V0 * psi, 1)
 
 
 def build_hessian(model, obj: ObjectiveContext, v, project_spd: bool = True) -> HessianState:
     """The per-particle Hessian context at v, without the residual."""
     ctx = cm.hessian_context(model, updated_F(obj, v), obj.mu, obj.lam, project=project_spd)
-    return HessianState(*(soa(t) for t in ctx))
+    return HessianState(*(soa(t, v.ndim - 2) for t in ctx))
 
 
 def linearize(model, obj: ObjectiveContext, v, project_spd: bool = True):
@@ -129,7 +144,7 @@ def linearize(model, obj: ObjectiveContext, v, project_spd: bool = True):
     f, U, V, A, bp, bm = fused_linearize(
         v, obj.x_soa, obj.dx, obj.res, obj.F_soa, obj.mu, obj.lam, obj.V0, obj.dt, model,
         project=project_spd, kernel=obj.kernel, tgrid=obj.tgrid)
-    r = obj.grid_m[:, None] * (v - obj.v_star) - obj.dt * f
+    r = obj.grid_m[..., None] * (v - obj.v_star) - obj.dt * f
     return project(obj, r), HessianState(U=U, V=V, A=A, b_plus=bp, b_minus=bm)
 
 
@@ -140,8 +155,8 @@ def elastic_hessian_apply(x_soa, dx: float, res, F_soa, hess: HessianState, V0,
     that level's mass and mask (and tile grid, for compact nodes)."""
     df = fused_apply(w, x_soa, dx, res, F_soa, hess.U, hess.V, hess.A, hess.b_plus,
                      hess.b_minus, V0, dt, kernel, tgrid)
-    out = grid_m[:, None] * w - dt * df
-    return torch.where(active[:, None], out, w)
+    out = grid_m[..., None] * w - dt * df
+    return torch.where(active[..., None], out, w)
 
 
 def multiply(obj: ObjectiveContext, hess: HessianState, w):
@@ -165,12 +180,17 @@ def elastic_block_diag(stencil, F_n, ctx: cm.HessianContext, V0, dt: float,
     with y_k = V^T F^T gw_k and
       z_m = U (Q e_m o y_k)            lam_m = eig_m(A)   (normal modes)
       z   = (U_i y_j +- U_j y_i)/sqrt2  lam = b-/b+       (pair modes).
-    Computed and scattered in chunks of particles.
+    Computed and scattered in chunks of particles; a batch's members are
+    one particle set over their stacked grids (the stencil's member offsets).
     """
     d = dim
-    n_nodes = grid_m.shape[0]
+    lead, n_nodes = grid_m.shape[:-1], grid_m.shape[-1]
+    if lead:
+        stencil = transfer.Stencil(*(t.flatten(0, 1) for t in stencil))
+        F_n, V0 = F_n.flatten(0, 1), V0.flatten(0, 1)
+        ctx = cm.HessianContext(*(t.flatten(0, 1) for t in ctx))
     n, s = stencil.wn.shape
-    K = torch.zeros((n_nodes, d * d), dtype=F_n.dtype, device=F_n.device)
+    K = torch.zeros((math.prod(lead) * n_nodes, d * d), dtype=F_n.dtype, device=F_n.device)
     chunk = max(1, _BLOCK_DIAG_BUDGET // (s * d * d))
     inv_sqrt2 = 0.7071067811865476
     for lo in range(0, n, chunk):
@@ -190,8 +210,8 @@ def elastic_block_diag(stencil, F_n, ctx: cm.HessianContext, V0, dt: float,
                 B = B + (lam_scale * b)[:, None, None, None] * zm[..., :, None] * zm[..., None, :]
         K.index_add_(0, stencil.node_ids[sl].reshape(-1), B.reshape(-1, d * d))
     eye = torch.eye(d, dtype=K.dtype, device=K.device)
-    D = grid_m[:, None, None] * eye + K.reshape(n_nodes, d, d)
-    return torch.where(active[:, None, None], D, eye)
+    D = grid_m[..., None, None] * eye + K.reshape(lead + (n_nodes, d, d))
+    return torch.where(active[..., None, None], D, eye)
 
 
 def sym_block_inv(D):
@@ -226,19 +246,20 @@ def sym_block_inv(D):
 
 def project(obj: ObjectiveContext, r):
     """BC projection and inactive-node mask."""
-    r = torch.einsum("nij,nj->ni", obj.proj, r)
-    return torch.where(obj.active[:, None], r, torch.zeros_like(r))
+    r = torch.einsum("...ij,...j->...i", obj.proj, r)
+    return torch.where(obj.active[..., None], r, torch.zeros_like(r))
 
 
 def mass_precondition(obj: ObjectiveContext, r):
     """Inverse-mass (Jacobi on the inertia term) preconditioner."""
     inv_m = torch.where(obj.active, 1.0 / torch.clamp(obj.grid_m, min=1e-30),
                         torch.ones_like(obj.grid_m))
-    return r * inv_m[:, None]
+    return r * inv_m[..., None]
 
 
 def cn_norm(obj: ObjectiveContext, r):
-    """Characteristic norm: RMS of the nondimensionalised residual."""
-    scaled = r / obj.cn_scale[:, None]
-    n_active = torch.clamp(obj.active.sum(), min=1)
-    return torch.sqrt(torch.sum(scaled * scaled) / n_active.to(r.dtype))
+    """Characteristic norm: RMS of the nondimensionalised residual (per
+    member for a batch)."""
+    scaled = r / obj.cn_scale[..., None]
+    n_active = torch.clamp(member_sum(obj.active, 1), min=1)
+    return torch.sqrt(member_sum(scaled * scaled, 2) / n_active.to(r.dtype))

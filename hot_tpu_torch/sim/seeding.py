@@ -17,7 +17,7 @@ from hot_tpu_torch.sim.collision import Cylinder
 
 
 def sample_box(generator: torch.Generator, lo, hi, dx: float,
-               particles_per_cell: int, dtype=torch.float32, device="cpu"):
+               particles_per_cell: int, dtype=torch.float32, device="cuda"):
     """Jittered-lattice samples filling [lo, hi]: (positions (n, dim), the
     per-particle volume dx^dim / particles_per_cell). Each dx-cell is cut
     into per-axis sub-cells (counts factor particles_per_cell greedily) with
@@ -50,14 +50,14 @@ def level_set_mask(phi, x):
 
 
 def sample_level_set(generator: torch.Generator, phi, lo, hi, dx: float,
-                     particles_per_cell: int, dtype=torch.float32, device="cpu"):
+                     particles_per_cell: int, dtype=torch.float32, device="cuda"):
     """The samples of the box [lo, hi] inside phi: (positions, volume)."""
     x, volume = sample_box(generator, lo, hi, dx, particles_per_cell, dtype, device)
     return x[level_set_mask(phi, x)], volume
 
 
 def sample_sphere(generator: torch.Generator, center, radius: float, dx: float,
-                  particles_per_cell: int, dtype=torch.float32, device="cpu"):
+                  particles_per_cell: int, dtype=torch.float32, device="cuda"):
     """Samples inside a sphere."""
     center = np.asarray(center, np.float64)
 
@@ -71,7 +71,7 @@ def sample_sphere(generator: torch.Generator, center, radius: float, dx: float,
 
 def sample_cylinder(generator: torch.Generator, center, axis, radius: float,
                     half_height: float, dx: float, particles_per_cell: int,
-                    dtype=torch.float32, device="cpu"):
+                    dtype=torch.float32, device="cuda"):
     """Samples inside a finite capped cylinder (``collision.Cylinder``)."""
     cyl = Cylinder(center=tuple(center), axis=tuple(axis), radius=radius,
                    half_height=half_height)

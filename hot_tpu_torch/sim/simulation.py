@@ -21,6 +21,17 @@ F_n with no solve. The plasticity return maps are von Mises, snow (with Jp)
 and Drucker-Prager at a 30 degree friction angle (``models.plasticity``).
 The kernels run whenever the state lives on a CUDA device.
 
+A batch of members (``sim.state.stack_states``: one scene at B stiffnesses,
+say) steps together, as hot_tpu's ``jax.vmap(advance_one_step, in_axes=(0,
+None, None))`` does: every per-particle and per-node array carries a leading
+member dimension, dt, t, cfg, model, colliders and plasticity are shared,
+each member runs its own Newton and CG iterations (``solver.newton``), and
+each particle kernel runs once per batch. The batch takes the dense grid,
+quadratic or cubic transfers, block-Jacobi, Jacobi or no preconditioner
+under the matrix-free Hessian, line search, the explicit integrator, every
+model and return map; it refuses multigrid, the sparse grid, L-BFGS, MINRES
+and the explicit BSR (NotImplementedError).
+
 The step is eager PyTorch; dt is a Python float. As in hot_tpu, cubic
 transfers refuse every operator assembled into the 5-wide quadratic BSR:
 the explicit outer Hessian, assembled multigrid levels and (the port's
@@ -54,6 +65,9 @@ from hot_tpu_torch.utils.timing import PhaseTimer
 
 
 class StepStats(NamedTuple):
+    """One step's diagnostics; for a batch every field is a list, one entry
+    per member."""
+
     newton_iters: int
     cg_iters: int
     cn_residual: float
@@ -74,9 +88,19 @@ NONLINEAR = ("newton", "lbfgs")
 DRUCKER_PRAGER_FRICTION_DEG = 30.0
 
 
-def _check_supported(cfg: SimConfig, plasticity):
+def _check_supported(cfg: SimConfig, plasticity, batched: bool = False):
     sol = cfg.solver
     mgc = sol.multigrid
+    if batched:
+        for bad, what in (
+                (sol.preconditioner == "multigrid",
+                 "the multigrid preconditioner (its compressed rows differ per member)"),
+                (cfg.grid_backend == "sparse", "the sparse grid (its tile sets differ per member)"),
+                (sol.nonlinear == "lbfgs", "L-BFGS"),
+                (sol.linear_solver == "minres", "MINRES"),
+                (not sol.matrix_free, "the explicit BSR Hessian (matrix_free=False)")):
+            if bad:
+                raise NotImplementedError(f"a batch of states does not take {what} yet")
     unsupported = [
         (tuple(cfg.mesh.shape) != (1,), f"a device mesh of shape {tuple(cfg.mesh.shape)}"),
         (sol.overlap_halo, "solver.overlap_halo (the sharded step's halo overlap)"),
@@ -135,10 +159,15 @@ def _explicit_update(model, obj: obj_mod.ObjectiveContext, state: ParticleState,
     solve (hot_tpu/sim/simulation.py:431-448). No kernel runs."""
     P = cm.first_piola(model, state.F, state.mu, state.lam)
     f = transfer.scatter_force(obj.stencil, P @ state.F.transpose(-1, -2), state.V0,
-                               obj.grid_m.shape[0])
-    return NewtonResult(v=obj.v_star + obj.dt * f * inv_m[:, None], iters=0, cg_iters=0,
-                        cn_residual=0.0, cn_residual0=0.0, converged=True, cn_history=[],
-                        ls_backtracks=0)
+                               obj.grid_m.shape[-1])
+    v = obj.v_star + obj.dt * f * inv_m[..., None]
+    if state.batch is None:
+        return NewtonResult(v=v, iters=0, cg_iters=0, cn_residual=0.0, cn_residual0=0.0,
+                            converged=True, cn_history=[], ls_backtracks=0)
+    zeros = [0] * state.batch
+    return NewtonResult(v=v, iters=zeros, cg_iters=zeros, cn_residual=[0.0] * state.batch,
+                        cn_residual0=[0.0] * state.batch, converged=[True] * state.batch,
+                        cn_history=[[] for _ in zeros], ls_backtracks=zeros)
 
 
 def _lbfgs_update(model, obj: obj_mod.ObjectiveContext, sol, v0) -> NewtonResult:
@@ -206,7 +235,7 @@ def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
                                            grid_m, active, dim)
             return obj_mod.sym_block_inv(D)
 
-        precond = lambda Dinv, r: torch.einsum("nij,nj->ni", Dinv, r)  # noqa: E731
+        precond = lambda Dinv, r: torch.einsum("...ij,...j->...i", Dinv, r)  # noqa: E731
     elif sol.preconditioner == "multigrid":
         mgc = sol.multigrid
         mg_static = mg_mod.build_static(
@@ -256,14 +285,16 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
                      model, colliders: Sequence[collision.Collider],
                      plasticity: Optional[str] = None) -> Tuple[ParticleState, StepStats]:
     """One MPM step from `state` at time t (implicit backward Euler unless
-    cfg.solver.integrator is "explicit").
+    cfg.solver.integrator is "explicit"); `state` may be a batch (see the
+    module doc), whose StepStats hold a list per field.
 
     Float32 products run in full float32: TF32, like the TPU's default bf16
     matmul passes, loses about three decimal digits, which stalls Newton.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _check_supported(cfg, plasticity)
+    batched = state.batch is not None
+    _check_supported(cfg, plasticity, batched)
     dim = cfg.dim
     res = tuple(cfg.grid_res[:dim])
     dx = cfg.dx
@@ -284,13 +315,18 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     grid_m, grid_mv = transfer.p2g_mass_momentum(st, state.v, state.C, state.m, n_nodes)
     active = grid_m > 0
     inv_m = torch.where(active, 1.0 / torch.clamp(grid_m, min=1e-30), torch.zeros_like(grid_m))
-    v_grid = grid_mv * inv_m[:, None]
+    v_grid = grid_mv * inv_m[..., None]
 
-    # ---- grid BC
+    # ---- grid BC (node positions shared by a batch's members)
     gravity = torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device)
-    v_star = v_grid + dt * gravity[None, :]
+    v_star = v_grid + dt * gravity
     proj, v_bc, constrained = collision.grid_boundary_conditions(
         node_pos, t, colliders, grid_v=v_star, boundary_margin=2, res=res, dx=dx)
+    if batched:
+        # each member's own copy, so that every projection runs at the batch's
+        # shape and gives contiguous vectors, as the kernels take them
+        proj = proj.expand(v_star.shape + (dim,)).contiguous()
+        v_bc = v_bc.expand(v_star.shape).contiguous()
     v0 = collision.apply_bc_to_velocity(v_star, proj, v_bc)
 
     # ---- grid update: implicit (Newton or L-BFGS) or explicit
@@ -317,38 +353,52 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     eye = torch.eye(dim, dtype=dtype, device=device)
     F_new, Jp_new = return_map(plasticity, (eye + dt * grad_v) @ state.F, state)
     hi = (torch.tensor(res, dtype=dtype, device=device) - 3.0) * dx
-    x_new = torch.minimum(torch.clamp(state.x + dt * v_pic, min=2.0 * dx), hi[None, :])
+    x_new = torch.minimum(torch.clamp(state.x + dt * v_pic, min=2.0 * dx), hi)
     new_state = state.replace(x=x_new, v=v_p, C=C_next, F=F_new, Jp=Jp_new)
 
-    # ---- diagnostics (one readback)
+    # ---- diagnostics (one readback), per member for a batch
     if cfg.compute_energy:
-        potential = torch.sum(state.V0 * cm.psi_from_F(model, F_new, state.mu, state.lam))
+        potential = obj_mod.member_sum(
+            state.V0 * cm.psi_from_F(model, F_new, state.mu, state.lam), 1)
     else:
-        potential = torch.zeros((), dtype=dtype, device=device)
+        potential = torch.zeros(active.shape[:-1], dtype=dtype, device=device)
     vmax, ke, pe, n_active = torch.stack([
-        torch.linalg.norm(v_p, dim=-1).max(),
-        0.5 * torch.sum(state.m * torch.sum(v_p * v_p, dim=-1)),
+        torch.linalg.norm(v_p, dim=-1).amax(-1),
+        0.5 * obj_mod.member_sum(state.m * torch.sum(v_p * v_p, dim=-1), 1),
         potential,
-        active.sum().to(dtype),
+        obj_mod.member_sum(active, 1).to(dtype),
     ]).tolist()
     stats = StepStats(
         newton_iters=result.iters, cg_iters=result.cg_iters,
         cn_residual=result.cn_residual, cn_residual0=result.cn_residual0,
         converged=result.converged, max_velocity=vmax, kinetic_energy=ke,
-        potential_energy=pe, active_nodes=int(n_active), ls_backtracks=result.ls_backtracks,
+        potential_energy=pe, active_nodes=_ints(n_active), ls_backtracks=result.ls_backtracks,
         active_tiles=0 if tgrid is None else tgrid.n_active,
     )
+    if batched:
+        stats = stats._replace(active_tiles=[0] * state.batch)
     return new_state, stats
 
 
+def _ints(counts):
+    return [int(c) for c in counts] if isinstance(counts, list) else int(counts)
+
+
+def _members(values):
+    """A StepStats field over a batch's members (or one state's value)."""
+    return values if isinstance(values, list) else [values]
+
+
 class Simulation:
-    """Frame-loop driver: CFL dt, the step with dt-halving retries, metrics."""
+    """The frame loop: CFL dt, the step with dt-halving retries, metrics.
+    A batch's members share dt, and a step is retried unless every member
+    converged to a finite state."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState, model,
                  colliders: Sequence[collision.Collider] = (),
                  plasticity: Optional[str] = None,
                  metrics: Optional[MetricsLogger] = None):
-        _check_supported(cfg, plasticity)
+        _check_supported(cfg, plasticity, state.batch is not None)
         self.cfg = cfg
         self.state = state
         self.model = model
@@ -381,9 +431,10 @@ class Simulation:
                 new_state, stats = advance_one_step(
                     prev_state, dt, self.t, cfg=self.cfg, model=self.model,
                     colliders=self.colliders, plasticity=self.plasticity)
-            finite = (math.isfinite(stats.cn_residual)
+            finite = (all(map(math.isfinite, _members(stats.cn_residual)))
                       and bool(torch.isfinite(new_state.x).all()))
-            if finite and (stats.converged or attempt >= self.cfg.solver.dt_retries):
+            converged = all(_members(stats.converged))
+            if finite and (converged or attempt >= self.cfg.solver.dt_retries):
                 break
             if attempt >= self.cfg.solver.dt_retries:
                 self.metrics.log(event="nonfinite_give_up", dt=dt)

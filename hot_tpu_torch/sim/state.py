@@ -3,6 +3,10 @@
 Counterpart of ``hot_tpu.sim.state``: the same fields, with the per-particle
 matrices C and F stored flat (n, d*d) row-major and viewed as (n, d, d)
 through the ``C``/``F`` properties.
+
+A batch of B members of equal particle count (``stack_states``; hot_tpu's
+``jax.vmap`` over ``ParticleState``) carries a leading member dimension on
+every field: x (B, n, d), mu (B, n), and so on.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ FIELDS = ("x", "v", "Cf", "Ff", "m", "V0", "mu", "lam", "yield_stress", "Jp")
 
 @dataclasses.dataclass
 class ParticleState:
-    """All per-particle tensors. Shapes: n particles, d spatial dims."""
+    """All per-particle tensors. Shapes: n particles, d spatial dims, and a
+    leading member dimension B in a batch."""
 
     x: torch.Tensor             # (n, d) positions
     v: torch.Tensor             # (n, d) velocities
@@ -34,7 +39,12 @@ class ParticleState:
 
     @property
     def n(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-2]
+
+    @property
+    def batch(self) -> Optional[int]:
+        """The number of members of a batch, None for one state."""
+        return self.x.shape[0] if self.x.ndim == 3 else None
 
     @property
     def dim(self) -> int:
@@ -63,7 +73,7 @@ class ParticleState:
 def make_particle_state(x, *, velocity=None, density: float = 1000.0,
                         particle_volume: Optional[float] = None, mu=None, lam=None,
                         E: float = 1e5, nu: float = 0.3, yield_stress: float = math.inf,
-                        dtype=torch.float32, device="cpu") -> ParticleState:
+                        dtype=torch.float32, device="cuda") -> ParticleState:
     """A rest-state particle set at positions x with a shared volume."""
     x = torch.as_tensor(x, dtype=dtype, device=device)
     n, d = x.shape
@@ -94,9 +104,28 @@ def concatenate_states(states) -> ParticleState:
     return ParticleState(**{f: torch.cat([getattr(s, f) for s in states]) for f in FIELDS})
 
 
+def stack_states(states) -> ParticleState:
+    """The batch of `states` (each of the same particle count), stacked
+    along a leading member dimension."""
+    counts = {s.n for s in states}
+    if len(counts) != 1 or any(s.batch is not None for s in states):
+        raise ValueError(f"a batch stacks single states of one particle count, got {counts}")
+    return ParticleState(**{f: torch.stack([getattr(s, f) for s in states]) for f in FIELDS})
+
+
+def unstack_states(state: ParticleState):
+    """The members of a batch, as single states (views)."""
+    if state.batch is None:
+        raise ValueError("unstack_states takes a batch (a leading member dimension)")
+    return [ParticleState(**{f: getattr(state, f)[b] for f in FIELDS})
+            for b in range(state.batch)]
+
+
 def state_from_numpy(arrays: Mapping[str, np.ndarray], device, dtype) -> ParticleState:
     """A ParticleState from numpy arrays of every field (the field names of
-    ``hot_tpu.sim.state.ParticleState``), e.g. to carry a state across."""
+    ``hot_tpu.sim.state.ParticleState``), e.g. to carry a state across; with
+    a leading member dimension on every field (hot_tpu's vmapped state), a
+    batch."""
     return ParticleState(**{
         f: torch.tensor(np.asarray(arrays[f]), dtype=dtype, device=device)
         for f in FIELDS})

@@ -11,6 +11,14 @@ iteration.
 ``project`` enforces Dirichlet/collision constraints: an orthogonal
 projector applied to residuals and directions; the operator acts as the
 identity on the projected-out subspace.
+
+CG also solves a batch of B independent systems at once, vectors with a
+leading member dimension (what ``jax.vmap`` makes of hot_tpu's loop): every
+dot product is per member, each member takes its own alpha and beta and
+stops on its own threshold, and a member that has stopped is frozen (its
+iterate kept by select, never multiplied by a mask, so a frozen member's
+0/0 cannot poison the others). The loop runs while any member is active and
+reads back one (B,) activity mask per iteration.
 """
 
 from __future__ import annotations
@@ -22,14 +30,48 @@ import torch
 
 class CGResult(NamedTuple):
     x: torch.Tensor
-    iters: int                 # iterations executed
-    residual: torch.Tensor     # final |r|_2
+    iters: int                 # iterations executed (a batch: a list, per member)
+    residual: torch.Tensor     # final |r|_2 (a batch: (B,))
     residual0: torch.Tensor    # initial |r|_2
-    converged: bool
+    converged: bool            # (a batch: a (B,) tensor)
 
 
 def _dot(a, b):
     return torch.sum(a * b)
+
+
+def dot(a, b, batched: bool = False):
+    """a . b; per member (B,) over everything but the leading dimension for
+    a batch."""
+    return torch.sum(a * b, dim=tuple(range(1, a.ndim))) if batched else _dot(a, b)
+
+
+def per_member(s, like):
+    """A scalar per problem (0-dim, or (B,) for a batch) against vectors
+    shaped like `like`."""
+    return s if s.ndim == 0 else s.reshape(s.shape + (1,) * (like.ndim - 1))
+
+
+def keep(going, new, old):
+    """new where a member is still going, old where it is frozen. One
+    problem (a 0-dim mask) leaves its loop instead of freezing, so inside
+    the loop it takes new."""
+    if going.ndim == 0:
+        return new
+    return torch.where(going.reshape(going.shape + (1,) * (new.ndim - going.ndim)), new, old)
+
+
+def any_going(flags) -> bool:
+    """A read-back mask (a bool, or a list per member) has a member going."""
+    return any(flags) if isinstance(flags, list) else flags
+
+
+def count(total, flags):
+    """Iteration counters advanced by a read-back mask: an int for one
+    problem, a list per member for a batch."""
+    if isinstance(flags, list):
+        return [t + f for t, f in zip(total, flags)]
+    return total + flags
 
 
 def _identity(x):
@@ -38,35 +80,51 @@ def _identity(x):
 
 def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,
              project: Optional[Callable] = None, tol=1e-3, abs_tol: float = 0.0,
-             max_iters: int = 200) -> CGResult:
-    """Solve A x = b; stop when |r|_2 <= max(tol |r0|_2, abs_tol)."""
+             max_iters: int = 200, active=None) -> CGResult:
+    """Solve A x = b; stop when |r|_2 <= max(tol |r0|_2, abs_tol).
+
+    A batch (b (B, ...)) passes `active`, the (B,) mask of the members to
+    solve (the others keep x0 and count no iteration), and tol may be a
+    (B,) tensor (see the module doc)."""
     precondition = precondition or _identity
     project = project or _identity
+    batched = active is not None
     x = torch.zeros_like(b) if x0 is None else x0
     r = project(b - multiply(x))
     z = project(precondition(r))
     p = z
-    rz = _dot(r, z)
-    rnorm0 = torch.sqrt(_dot(r, r))
+    rz = dot(r, z, batched)
+    rnorm0 = torch.sqrt(dot(r, r, batched))
     threshold = torch.clamp(tol * rnorm0, min=abs_tol)
     rnorm = rnorm0
+    going = rnorm > threshold
+    if active is not None:
+        going = going & active
+    iters = [0] * going.shape[0] if going.ndim else 0
     k = 0
-    while k < max_iters and bool(rnorm > threshold):
+    while k < max_iters:
+        flags = going.tolist()
+        if not any_going(flags):
+            break
         Ap = project(multiply(p))
-        pAp = _dot(p, Ap)
-        alpha = torch.where(pAp > 0, rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp),
-                            torch.zeros_like(pAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
+        pAp = dot(p, Ap, batched)
+        alpha = per_member(torch.where(
+            pAp > 0, rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp),
+            torch.zeros_like(pAp)), p)
+        x = keep(going, x + alpha * p, x)
+        r = keep(going, r - alpha * Ap, r)
         z = project(precondition(r))
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z, batched)
         beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p = z + beta * p
-        rz = rz_new
+        p = keep(going, z + per_member(beta, p) * p, p)
+        rz = keep(going, rz_new, rz)
         k += 1
-        rnorm = torch.sqrt(_dot(r, r))
-    return CGResult(x=x, iters=k, residual=rnorm, residual0=rnorm0,
-                    converged=bool(rnorm <= threshold))
+        iters = count(iters, flags)
+        rnorm = keep(going, torch.sqrt(dot(r, r, batched)), rnorm)
+        going = going & (rnorm > threshold)
+    converged = rnorm <= threshold
+    return CGResult(x=x, iters=iters, residual=rnorm, residual0=rnorm0,
+                    converged=converged if converged.ndim else bool(converged))
 
 
 def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,

@@ -9,6 +9,13 @@ The inner solver is CG or MINRES (``linear_solver``). With ``line_search``
 the update is v + alpha dv, alpha halved from 1 (at most ls_max_backtracks
 times) until the Armijo condition E(v + alpha dv) <= E(v) + 1e-4 alpha
 r . dv holds; each trial is one energy evaluation and one readback.
+
+A batch of B independent problems (v (B, ...); cn_norm and energy return
+(B,)) runs as ``jax.vmap`` runs hot_tpu's loop: each member takes its own CN
+norm, forcing eta, CG and line search and its own counters, as if alone; a
+member that has stopped is frozen (v, r and its CN norm kept by select) and
+the loop runs while any member is active, reading back one (B,) activity mask
+per iteration (and per line-search trial). Only CG takes a batch.
 """
 
 from __future__ import annotations
@@ -17,12 +24,16 @@ from typing import Callable, List, NamedTuple
 
 import torch
 
-from hot_tpu_torch.solver.cg import cg_solve, minres_solve
+from hot_tpu_torch.solver.cg import (any_going, cg_solve, count, dot, keep, minres_solve,
+                                     per_member)
 
 SOLVERS = {"cg": cg_solve, "minres": minres_solve}
 
 
 class NewtonResult(NamedTuple):
+    """The solve's result; for a batch every field but v is a list, one
+    entry per member."""
+
     v: torch.Tensor
     iters: int                  # Newton iterations executed
     cg_iters: int               # total CG iterations across the solve
@@ -68,14 +79,19 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     r, hess = linearize(v)
     cn0 = cn_norm(r)
     cn = cn0
+    batch = cn0.shape[0] if cn0.ndim else None
+    if batch is not None and linear_solver != "cg":
+        raise NotImplementedError(f"a batch takes linear_solver 'cg', not '{linear_solver}'")
     partial = refresh_preconditioner is not None and precond_refresh == "newton"
     frozen = build_preconditioner(hess) if precond_refresh == "step" or partial else None
-    history = [float(cn0)]
+    history = [cn0]
     solve = SOLVERS[linear_solver]
-    k = cg_total = backtracks = 0
+    k = 0
+    iters, cg_total, backtracks = ([0] * batch for _ in range(3)) if batch else (0, 0, 0)
     while k < max_newton:
-        cn_f, rnorm = torch.stack([cn, torch.sqrt(torch.sum(r * r))]).tolist()
-        if not (cn_f > cn_eps and rnorm > abs_tol):
+        going = (cn > cn_eps) & (torch.sqrt(dot(r, r, batch is not None)) > abs_tol)
+        flags = going.tolist()
+        if not any_going(flags):
             break
         if precond_refresh == "step":
             pstate = frozen
@@ -89,22 +105,37 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
             eta = cg_tol
         res = solve(lambda w: multiply(hess, w), -r,
                     precondition=lambda z: precondition(pstate, z),
-                    project=project, tol=eta, max_iters=max_cg)
-        alpha = 1.0
+                    project=project, tol=eta, max_iters=max_cg,
+                    **({} if batch is None else {"active": going}))
+        step = res.x
         if line_search:
-            E0, slope = energy(v), torch.sum(r * res.x)
-            j = 0
-            while j < ls_max_backtracks and not bool(
-                    energy(v + alpha * res.x) <= E0 + 1e-4 * alpha * slope):
-                alpha, j = 0.5 * alpha, j + 1
-            backtracks += j
-        v = v + alpha * res.x
-        r, hess = linearize(v)
-        cn = cn_norm(r)
+            E0, slope = energy(v), dot(r, res.x, batch is not None)
+            alpha = torch.ones_like(cn)
+            trying = going
+            for _ in range(ls_max_backtracks):
+                trying = trying & ~(energy(v + per_member(alpha, v) * res.x)
+                                    <= E0 + 1e-4 * alpha * slope)
+                halve = trying.tolist()
+                if not any_going(halve):
+                    break
+                alpha = torch.where(trying, 0.5 * alpha, alpha)
+                backtracks = count(backtracks, halve)
+            step = per_member(alpha, v) * res.x
+        v = keep(going, v + step, v)
+        r_new, hess = linearize(v)
+        r, cn = keep(going, r_new, r), keep(going, cn_norm(r_new), cn)
         k += 1
-        cg_total += res.iters
-        history.append(float(cn))
-    cn_f = float(cn)
-    return NewtonResult(v=v, iters=k, cg_iters=cg_total, cn_residual=cn_f,
-                        cn_residual0=history[0], converged=cn_f <= cn_eps,
-                        cn_history=history, ls_backtracks=backtracks)
+        iters = count(iters, flags)
+        cg_total = count(cg_total, res.iters)   # a frozen member's CG counts 0
+        history.append(cn)
+    # one readback: the CN norms from cn0 on
+    history = torch.stack(history).tolist()
+    if batch is None:
+        return NewtonResult(v=v, iters=k, cg_iters=cg_total, cn_residual=history[-1],
+                            cn_residual0=history[0], converged=history[-1] <= cn_eps,
+                            cn_history=history, ls_backtracks=backtracks)
+    per = [[h[b] for h in history[:iters[b] + 1]] for b in range(batch)]
+    return NewtonResult(v=v, iters=iters, cg_iters=cg_total, cn_residual=[h[-1] for h in per],
+                        cn_residual0=[h[0] for h in per],
+                        converged=[h[-1] <= cn_eps for h in per], cn_history=per,
+                        ls_backtracks=backtracks)

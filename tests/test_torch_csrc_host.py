@@ -4,8 +4,9 @@ against the kernels' plain PyTorch versions.
 A small stand-in for the CUDA runtime (SHIM) turns each launch into host
 code, so the kernels' own code runs on the CPU at 16^3 / 24^2:
 
-  * the particle kernels (launched with dynamic shared memory) run each
-    block's threads at once, one std::thread each; __syncthreads is a
+  * the particle kernels (launched with dynamic shared memory, on a grid of
+    blocks by batch members, blockIdx.y the member) run each block's
+    threads at once, one std::thread each; __syncthreads is a
     std::barrier, __shared__ data is function-static (blocks run one after
     another, so it is block-shared), the dynamic shared memory is the
     block's buffer, atomics go through std::atomic_ref, and the warp
@@ -55,8 +56,12 @@ SHIM = r"""
 #include <climits>
 #include <thread>
 #include <vector>
-struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local Dim3 blockIdx, threadIdx, blockDim;
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() = default;
+  dim3(unsigned x_, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline thread_local dim3 blockIdx{0, 0, 0}, threadIdx{0, 0, 0}, blockDim, gridDim;
 #define __global__
 #define __device__
 #define __host__
@@ -172,23 +177,25 @@ inline void host_launch(unsigned blocks, unsigned threads, Fn fn, Args... args) 
   }
 }
 // Concurrent launches (the particle kernels): a block's threads at once,
-// blocks one after another.
+// blocks one after another, the grid's y rows (batch members) in turn.
 template <typename Fn, typename... Args>
-inline void host_launch_block(unsigned blocks, unsigned threads, size_t smem, Fn fn,
+inline void host_launch_block(dim3 blocks, unsigned threads, size_t smem, Fn fn,
                               Args... args) {
-  for (unsigned b = 0; b < blocks; ++b) {
-    HostBlock blk(threads, smem);
-    std::vector<std::thread> pool;
-    for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([&, t] {
-        blockDim.x = threads;
-        blockIdx.x = b;
-        threadIdx.x = t;
-        host_block = &blk;
-        fn(args...);
-      });
-    for (auto& th : pool) th.join();
-  }
+  for (unsigned by = 0; by < blocks.y; ++by)
+    for (unsigned b = 0; b < blocks.x; ++b) {
+      HostBlock blk(threads, smem);
+      std::vector<std::thread> pool;
+      for (unsigned t = 0; t < threads; ++t)
+        pool.emplace_back([&, t] {
+          blockDim = dim3(threads);
+          gridDim = blocks;
+          blockIdx = dim3(b, by, 0);
+          threadIdx = dim3(t, 0, 0);
+          host_block = &blk;
+          fn(args...);
+        });
+      for (auto& th : pool) th.join();
+    }
 }
 """
 LAUNCHES = [(re.compile(r"(\w+<[^<>]*>)<<<blocks, kThreads, 0, stream>>>\("),
@@ -276,7 +283,8 @@ def _check_kernels(host_lib, c, model_name, dtype, threads=128,
         fl.MODEL_CODES[model_name], code, d, width, _ptr(c["v"]), _ptr(x), c["dx"], res, *lookup,
         _ptr(F),
         _ptr(c["mu"]), _ptr(c["lam"]), _ptr(c["V0"]), DT, int(project), _ptr(f), _ptr(U),
-        _ptr(V), _ptr(A), _ptr(bp), _ptr(bm), n, threads, window_nodes, _ptr(stats[0]), None)
+        _ptr(V), _ptr(A), _ptr(bp), _ptr(bm), n, c["v"].shape[0], 1, threads, window_nodes,
+        _ptr(stats[0]), None)
     assert rc == 0
     want = fl.fused_linearize_plain(c["v"], x, c["dx"], c["res"], F, c["mu"], c["lam"],
                                     c["V0"], DT, model, project, kernel, tgrid)
@@ -295,7 +303,7 @@ def _check_kernels(host_lib, c, model_name, dtype, threads=128,
     ctx = want[1:]
     rc = host_lib.hot_fused_apply(code, d, width, _ptr(w), _ptr(x), c["dx"], res, *lookup,
                                   _ptr(F), *map(_ptr, ctx), _ptr(c["V0"]), DT, _ptr(df), n,
-                                  threads, window_nodes, _ptr(stats[1]), None)
+                                  w.shape[0], 1, threads, window_nodes, _ptr(stats[1]), None)
     assert rc == 0
     assert _rel(df, fa.fused_apply_plain(w, x, c["dx"], c["res"], F, *ctx, c["V0"], DT,
                                          kernel, tgrid)) <= tol_apply
@@ -532,21 +540,88 @@ def test_unsupported_dim_is_refused(host_lib):
     z = torch.zeros(1)
     p = z.data_ptr()
     res = cuda_lib.int_array((1, 1, 1))
-    assert host_lib.hot_fused_apply(0, 4, 3, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 128,
-                                    0, None, None) != 0
-    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 100,
-                                    0, None, None) != 0
-    assert host_lib.hot_fused_apply(0, 3, 5, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 128,
-                                    0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 4, 3, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 1, 1,
+                                    128, 0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 1, 1,
+                                    100, 0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 5, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 1, 1,
+                                    128, 0, None, None) != 0
     assert host_lib.hot_fused_linearize(7, 0, 3, 3, p, p, 1.0, res, None, 0, *[p] * 4, DT, 1,
-                                        *[p] * 6, 1, 128, 0, None, None) != 0
+                                        *[p] * 6, 1, 1, 1, 128, 0, None, None) != 0
     assert host_lib.hot_fused_linearize(0, 0, 3, 2, p, p, 1.0, res, None, 0, *[p] * 4, DT, 1,
-                                        *[p] * 6, 1, 128, 0, None, None) != 0
+                                        *[p] * 6, 1, 1, 1, 128, 0, None, None) != 0
     # a tile lookup needs a tile size, and the quadratic stencil
-    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, p, 0, *[p] * 7, DT, p, 1, 128,
-                                    0, None, None) != 0
-    assert host_lib.hot_fused_apply(0, 3, 4, p, p, 1.0, res, p, 4, *[p] * 7, DT, p, 1, 128,
-                                    0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, p, 0, *[p] * 7, DT, p, 1, 1, 1,
+                                    128, 0, None, None) != 0
+    assert host_lib.hot_fused_apply(0, 3, 4, p, p, 1.0, res, p, 4, *[p] * 7, DT, p, 1, 1, 1,
+                                    128, 0, None, None) != 0
     assert host_lib.hot_fused_linearize(0, 0, 3, 4, p, p, 1.0, res, p, 4, *[p] * 4, DT, 1,
-                                        *[p] * 6, 1, 128, 0, None, None) != 0
+                                        *[p] * 6, 1, 1, 1, 128, 0, None, None) != 0
+    # a batch of 1 to 65535 members (the launch grid's y extent)
+    for batch in (0, 65536):
+        assert host_lib.hot_fused_apply(0, 3, 3, p, p, 1.0, res, None, 0, *[p] * 7, DT, p, 1, 1,
+                                        batch, 128, 0, None, None) != 0
+        assert host_lib.hot_fused_linearize(0, 0, 3, 3, p, p, 1.0, res, None, 0, *[p] * 4, DT,
+                                            1, *[p] * 6, 1, 1, batch, 128, 0, None,
+                                            None) != 0
     assert host_lib.hot_bsr_spmv(0, 4, *[z.data_ptr()] * 4, 1, 125, None) != 0
+
+
+def _launch_pair(host_lib, c, model_name, width, batch, nodes, stats):
+    """The linearize, then the apply on its context, as launched for one
+    member (batch 1) or a stacked batch; returns (f, U, V, A, b+, b-, df)."""
+    x, F, v = c["x"], c["F"], c["v"]
+    d, n = x.shape[-2], x.shape[-1]
+    lead = x.shape[:-2]
+    n_pairs = 1 if d == 2 else 3
+    f = torch.zeros_like(v)
+    U, V, A = (torch.empty(lead + (d * d, n), dtype=v.dtype) for _ in range(3))
+    bp, bm = (torch.empty(lead + (n_pairs, n), dtype=v.dtype) for _ in range(2))
+    code = 0 if v.dtype == torch.float32 else 1
+    res = cuda_lib.int_array(c["res"])
+    rc = host_lib.hot_fused_linearize(
+        fl.MODEL_CODES[model_name], code, d, width, _ptr(v), _ptr(x), c["dx"], res, None, 0,
+        _ptr(F), _ptr(c["mu"]), _ptr(c["lam"]), _ptr(c["V0"]), DT, 1, _ptr(f), _ptr(U),
+        _ptr(V), _ptr(A), _ptr(bp), _ptr(bm), n, nodes, batch, 128, fa.WINDOW_NODES,
+        _ptr(stats[0]), None)
+    assert rc == 0
+    df = torch.zeros_like(c["w"])
+    rc = host_lib.hot_fused_apply(code, d, width, _ptr(c["w"]), _ptr(x), c["dx"], res, None, 0,
+                                  _ptr(F), *map(_ptr, (U, V, A, bp, bm)), _ptr(c["V0"]), DT,
+                                  _ptr(df), n, nodes, batch, 128, fa.WINDOW_NODES,
+                                  _ptr(stats[1]), None)
+    assert rc == 0
+    return f, U, V, A, bp, bm, df
+
+
+@pytest.mark.parametrize("kernel", ["quadratic", "cubic"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_kernels_batched_launch(host_lib, rng, d, kernel):
+    """Three members in one launch (blockIdx.y the member; fp64): each
+    member's particles jittered by up to 0.2 dx, with its own F noise,
+    stiffness and grid vectors. Every output equals three single launches
+    to 1e-12 of its largest entry (the scatter's atomics may sum in another
+    order), and the window counters sum over the members."""
+    width, members = kernel_width(kernel), []
+    for k in range(3):
+        c = _inputs(d, torch.float64, rng)
+        c["x"] = fa.soa(c["x"] + torch.as_tensor(rng.uniform(-0.2, 0.2, c["x"].shape)) * c["dx"])
+        c["F"] = fa.soa(c["F"])
+        c["mu"], c["lam"] = c["mu"] * 10.0 ** k, c["lam"] * 10.0 ** k
+        c["w"] = torch.as_tensor(rng.standard_normal(c["v"].shape))
+        members.append(c)
+    nodes = members[0]["v"].shape[0]
+    batch = dict(members[0], **{key: torch.stack([c[key] for c in members])
+                                for key in ("x", "F", "mu", "lam", "V0", "v", "w")})
+    new_stats = lambda: [torch.zeros(N_STATS, dtype=torch.int64) for _ in range(2)]  # noqa: E731
+    stats = new_stats()
+    got = _launch_pair(host_lib, batch, "fixed_corotated", width, 3, nodes, stats)
+    single_stats = new_stats()
+    want = [torch.stack(t) for t in zip(*(
+        _launch_pair(host_lib, c, "fixed_corotated", width, 1, nodes, single_stats)
+        for c in members))]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _rel(g, w) <= 1e-12
+    for b, s in zip(stats, single_stats):
+        assert fa.read_window_stats(b) == fa.read_window_stats(s)
+    assert fa.read_window_stats(stats[0])["blocks"] > 3

@@ -97,7 +97,8 @@ def test_checkpoints_cross_load(tmp_path, rng):
     assert (t2, k2) == (0.25, 9)
     _assert_states_equal(js2, js)
 
-    ts32, _, _ = tckpt.load_checkpoint(str(tmp_path / "t.npz"), dtype=torch.float32)
+    ts32, _, _ = tckpt.load_checkpoint(str(tmp_path / "t.npz"), device="cpu",
+                                       dtype=torch.float32)
     assert all(getattr(ts32, f).dtype == torch.float32 for f in FIELDS)
     assert ts32.x.device.type == "cpu"
 
@@ -134,7 +135,8 @@ def test_cli_resume_is_bitwise(tmp_path):
     assert not (resumed / "frame_00000.bgeo").exists()
     for name in ("frame_00001.bgeo", "ckpt_00001.npz"):
         assert (full / name).read_bytes() == (resumed / name).read_bytes(), name
-    a, b = (tckpt.load_checkpoint(str(p / "ckpt_00001.npz")) for p in (full, resumed))
+    a, b = (tckpt.load_checkpoint(str(p / "ckpt_00001.npz"), device="cpu")
+            for p in (full, resumed))
     _assert_states_equal(a[0], b[0])
     assert a[1:] == b[1:] and a[2] > 0
     x, _ = frames.read_bgeo(str(full / "frame_00001.bgeo"))
@@ -162,7 +164,7 @@ def test_cli_max_steps_stops_on_the_frame_grid(tmp_path, monkeypatch):
         assert main(common + device + ["--max-steps", "2", "-o", str(out / "stopped")]) == 0
         assert main(common + device + ["--resume", str(out / "stopped" / "ckpt_00000.npz"),
                                        "-o", str(out / "resumed")]) == 0
-        runs[name] = [tckpt.load_checkpoint(str(out / run / f"ckpt_{k:05d}.npz"))[1:]
+        runs[name] = [tckpt.load_checkpoint(str(out / run / f"ckpt_{k:05d}.npz"), device="cpu")[1:]
                       for run, k in (("stopped", 0), ("resumed", 1), ("resumed", 2))]
         assert sorted(os.listdir(out / "stopped")) == [
             "ckpt_00000.npz", "config.json", "frame_00000.npz", "metrics.jsonl", "timers.txt"]

@@ -104,6 +104,6 @@ def test_make_particle_state_matches_hot_tpu():
     js = j_make(jnp.asarray(x), particle_volume=2e-6, E=1e6, velocity=[0.0, 1.0, 0.0],
                 dtype=jnp.float64)
     ts = t_make(torch.from_numpy(x), particle_volume=2e-6, E=1e6, velocity=[0.0, 1.0, 0.0],
-                dtype=torch.float64)
+                dtype=torch.float64, device="cpu")
     for f in FIELDS:
         np.testing.assert_array_equal(t2n(getattr(ts, f)), np.asarray(getattr(js, f)))

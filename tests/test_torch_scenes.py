@@ -137,11 +137,11 @@ def test_samplers_keep_hot_tpu_points(sampler, hot_tpu_lattice):
     if sampler == "sphere":
         args = ((0.5, 0.45, 0.55), 0.2, dx, 8)
         jx, jv = jseed.sample_sphere(key, *args, dtype=jnp.float64)
-        tx, tv = tseed.sample_sphere(gen, *args, dtype=torch.float64)
+        tx, tv = tseed.sample_sphere(gen, *args, dtype=torch.float64, device="cpu")
     else:
         args = ((0.5, 0.42, 0.5), (0.3, 0.2, 1.0), 0.16, 0.05, dx, 8)
         jx, jv = jseed.sample_cylinder(key, *args, dtype=jnp.float64)
-        tx, tv = tseed.sample_cylinder(gen, *args, dtype=torch.float64)
+        tx, tv = tseed.sample_cylinder(gen, *args, dtype=torch.float64, device="cpu")
     assert tv == jv and tx.shape == jx.shape and jx.shape[0] > 100
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
 

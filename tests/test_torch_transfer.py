@@ -109,7 +109,7 @@ def test_seeding_lattice_matches(ppc):
     lo, hi, dx = (0.2, 0.4, 0.4), (0.8, 0.6, 0.6), 1.0 / 16
     jx, jvol = j_sample_box(jax.random.PRNGKey(1), lo, hi, dx, ppc, dtype=jnp.float64)
     g = torch.Generator().manual_seed(1)
-    tx, tvol = t_sample_box(g, lo, hi, dx, ppc, dtype=torch.float64)
+    tx, tvol = t_sample_box(g, lo, hi, dx, ppc, dtype=torch.float64, device="cpu")
     assert tvol == jvol and tx.shape == jx.shape
     sub = np.asarray([dx / k for k in ((2, 1, 1) if ppc == 2 else (2, 2, 2))])
     assert np.all(np.abs(t2n(tx) - np.asarray(jx)) <= 0.9 * sub + 1e-12)

@@ -86,12 +86,11 @@ Phases, each printing one JSON line:
               nodes and the tiles' lookup entries
   16 sparse   the 128^3 bar from one loaded state, dense against sparse
               backend, block-Jacobi and config 3, 6 steps each: converged,
-              no dt retry, launch counters as derived; each block-Jacobi
-              step again on the sparse grid from the dense run's state
-              before it: equal Newton, CG within 2 and x within 1e-4 dx;
-              steps/s, peak
-              memory, active tiles, compact against dense nodes, config 3's
-              compact/dense levels
+              no dt retry, launch counters as derived; the dense run's
+              state before each block-Jacobi step, cast to fp64, stepped
+              once on each grid: equal Newton, CG within 2 and x within
+              1e-4 dx; steps/s, peak memory, active tiles, compact against
+              dense nodes, config 3's compact/dense levels
   17 composed the composed Galerkin level 1 against spgemm.rap of the
               assembled fine operator (64^3, fp64, within 1e-10); then the
               128^3 bar, config 3 against config 3 with
@@ -114,13 +113,37 @@ Phases, each printing one JSON line:
               the bound of 8 members' bytes. Then the stiffness sweep: the
               64^3 bar (ppc 8) at E = 1e6 2^(k/2), k = -4..3, fp32,
               block-Jacobi, 6 steps from rest as one batch, then each member
-              alone: Newton equal, CG within 2, x within 1e-4 dx per step,
-              launch counters equal to the derived counts, member-steps/s of
-              both, peak memory; and block_drop_2d at 64^2, 16 members (E
-              1e4..1e7), fp64, 150 steps through impact, members 0, 5, 10, 15
-              alone, 3 times each (Newton equal, CG within 1, x within 1e-8
-              dx or 10 times the lone runs' largest mutual difference, if
-              larger)
+              alone 4 times (fp32 runs part by the atomics' order): at every
+              step a lone run took the member's Newton count with CG within
+              2, x within 1e-4 dx of the nearest lone run or 10 times the
+              lone runs' largest mutual difference, if larger (at most 1e-3
+              dx); launch counters equal to the derived counts,
+              member-steps/s of both, peak memory; and block_drop_2d at
+              64^2, 16 members (E 1e4..1e7), fp64, 150 steps through impact,
+              members 0, 5, 10, 15 alone, 3 times each (the same rule with
+              CG within 1, x within 1e-8 dx, the spread at most 1e-4 dx)
+  20 batch_solvers  (a) both particle kernels on a batch's tile grid: 8
+              members of the 64^3 bar, each moved by a tile and 1.5 cells
+              from the last (its own tile set), fp32 and fp64, against the
+              plain version per member and each member's own single launch;
+              one launch per call; device ms against the 8 single launches.
+              (b) the 64^3 bar at the 8 stiffnesses of phase batch, fp64, 3
+              steps from rest, under config 3 on the dense and the sparse
+              grid and under the composed level (assembled_from_level=1),
+              against members 0, 4 and 7 alone (Newton equal, CG within 1, x
+              within 1e-8 dx); launch counters as derived (one bsr_spmv per
+              batched SpMV); bsr_spmv over the 8 members' level-0 rows
+              against its plain version and the 8 single SpMVs. (c) the
+              128^3 bar at 4 stiffnesses, config 3 on the sparse grid, fp32,
+              3 steps after phase sparse's 2 loading steps: converged, no
+              retry, launches as derived; member-steps/s beside members 0
+              and 3 alone (counts recorded), MG build ms per Newton, peak
+              memory. (d) block_drop_2d at 64^2, 16 stiffnesses (E
+              1e4..1e7), fp64, through impact: under MINRES and the explicit
+              BSR 66 steps at dt 4e-3, members 0 and 15 alone twice each;
+              under L-BFGS 127 steps at dt 2e-3, members 0 and 5 held and
+              member 15 (whose lone runs part on the card) recorded (phase
+              batch's fp64 rule)
 Phase 3 also holds both particle kernels with the cubic stencil (4 nodes per
 axis, every model) and the Neo-Hookean and linear-corotated linearize
 against their plain versions, phase 3b times the cubic kernels at 64^3 and
@@ -1099,6 +1122,19 @@ def composed_against_rap(rng):
 SWEEP_E = [1e6 * 2.0 ** (k / 2) for k in range(-4, 4)]
 SWEEP_RES = 64
 SWEEP_STEPS = 6
+# The fp32 bar's members against themselves alone. fp32 trajectories part
+# from run to run by the order of the atomic adds: on an H100 two lone runs
+# of member 2 parted by up to 1.35e-4 dx (36 roundings of x) by step 6, and
+# member 7's sixth step took 6 or 7 Newton iterations alone (7 in the
+# batch), so a check against one lone run at X_TOL failed 6 of 12 sweeps
+# on two checkouts (python -m hot_tpu_torch.ab_batch_sweep). Each member
+# runs alone SWEEP_RUNS times and is held to them by hold_to_lone: a lone
+# run took each step's Newton count, and x is within the larger of X_TOL
+# and SWEEP_SPREAD times the lone runs' spread, which may not pass
+# SWEEP_SPREAD_CAP
+SWEEP_RUNS = 4
+SWEEP_SPREAD = 10.0
+SWEEP_SPREAD_CAP = 10 * X_TOL
 # the 2D sweep: 16 members, E log-spaced over 1e4..1e7, fp64, through impact;
 # these members also run alone
 DROP_E = np.logspace(4.0, 7.0, 16).tolist()
@@ -1110,9 +1146,12 @@ DROP_ALONE = (0, 5, 10, 15)
 # two lone runs of E = 1e6 parted by over 1e-6 dx by step 150). So each of
 # these members runs alone DROP_RUNS times, and the batch is held to the
 # larger of DROP_X_TOL and DROP_SPREAD times the lone runs' largest
-# difference from one another
+# difference from one another; lone runs parting by more than
+# DROP_SPREAD_CAP fail the check (a limit that grows with them would hold
+# nothing)
 DROP_X_TOL = 1e-8
 DROP_SPREAD = 10.0
+DROP_SPREAD_CAP = 1e-4
 DROP_RUNS = 3
 
 
@@ -1222,44 +1261,38 @@ def check_batch_kernels(c, members, timing):
 
 
 class CGCalls:
-    """Each inner CG solve of Newton inside: its iterations (per member for
-    a batch), read after the steps."""
+    """Each inner CG (or MINRES) solve of Newton inside: its iterations (per
+    member for a batch), read after the steps."""
 
     def __enter__(self):
         from hot_tpu_torch.solver import newton
 
-        self.mod, self.orig, self.iters = newton, newton.SOLVERS["cg"], []
+        self.mod, self.orig, self.iters = newton, dict(newton.SOLVERS), []
 
-        def recorded(*args, **kw):
-            res = self.orig(*args, **kw)
-            self.iters.append(res.iters)
-            return res
+        def recorded(solve):
+            def run(*args, **kw):
+                res = solve(*args, **kw)
+                self.iters.append(res.iters)
+                return res
+            return run
 
-        newton.SOLVERS["cg"] = recorded
+        for name, solve in self.orig.items():
+            newton.SOLVERS[name] = recorded(solve)
         return self
 
     def __exit__(self, *exc):
-        self.mod.SOLVERS["cg"] = self.orig
+        self.mod.SOLVERS.update(self.orig)
 
 
-def batch_launches(stats, cg_calls):
-    """The particle kernels' launches that a batch's steps imply: per step
-    one linearize at v0 and one per batched Newton iteration (the most
-    Newton iterations of any member); per CG solve one apply for the
-    initial residual and one per batched CG iteration (the most iterations
-    of any member still solving)."""
-    return {"fused_linearize": sum(max(s.newton_iters) + 1 for s in stats),
-            "fused_apply": sum(max(iters) + 1 for iters in cg_calls), "bsr_spmv": 0}
-
-
-def sweep_run(scene, cfg, state, steps, dt):
-    """`steps` Simulation steps at dt of one state or batch, from t = 0:
+def sweep_run(scene, cfg, state, steps, dt, t_start=0.0):
+    """`steps` Simulation steps at dt of one state or batch, from t_start:
     (Simulation, StepStats, seconds, launches, CG iterations per solve,
-    peak device memory, x after each step)."""
+    peak device memory, the state after each step)."""
     from hot_tpu_torch.sim import Simulation
 
     sim = Simulation(cfg, state, scene["model"], scene["colliders"])
-    xs = []
+    sim.t = t_start
+    states = []
 
     def run():
         torch.cuda.synchronize()
@@ -1267,7 +1300,7 @@ def sweep_run(scene, cfg, state, steps, dt):
         stats = []
         for _ in range(steps):
             stats.append(sim.step(dt))
-            xs.append(sim.state.x)
+            states.append(sim.state)
         torch.cuda.synchronize()
         return stats, time.perf_counter() - t0
 
@@ -1275,89 +1308,49 @@ def sweep_run(scene, cfg, state, steps, dt):
     torch.cuda.reset_peak_memory_stats()
     with CGCalls() as cg:
         (stats, seconds), launches = counted(run)
-    return sim, stats, seconds, launches, cg.iters, torch.cuda.max_memory_allocated(), xs
+    return sim, stats, seconds, launches, cg.iters, torch.cuda.max_memory_allocated(), states
 
 
-def sweep_against_alone(name, kw, Es, dtype, steps, dt, alone_members, cg_diff, x_tol,
-                        spread=None, runs=1):
-    """One scene at the stiffnesses Es as one batch, then the members
-    `alone_members` one at a time, from rest: per member and step the
-    batch's and the first lone run's (newton, cg) and max |x_batch -
-    x_alone| / dx, the launch counters against the derived counts,
-    member-steps/s of both, the peak memory. With `spread`, each member runs
-    alone `runs` times, and its x limit is the larger of x_tol and `spread`
-    times the lone runs' largest difference from one another. Returns the
-    row and what failed: the batch's launches against the derived ones, a
-    member parting from its lone run beyond the limits (Newton equal, CG
-    within cg_diff, x)."""
+def with_E(state, E):
+    """The state with every particle at Young's modulus E (nu 0.3)."""
     from hot_tpu_torch.models.constitutive import lame_parameters
+
+    mu, lam = lame_parameters(E, 0.3)
+    return state.replace(mu=torch.full_like(state.mu, mu), lam=torch.full_like(state.lam, lam))
+
+
+def scene_members(name, kw, Es, dtype):
+    """A scene (on the card) and its state at each stiffness of Es."""
     from hot_tpu_torch.scenes import build_scene
-    from hot_tpu_torch.sim.state import stack_states
 
     scene = build_scene(name, device="cuda", dtype=dtype, **kw)
-    cfg, base = scene["cfg"], scene["state"]
+    return scene, [with_E(scene["state"], E) for E in Es]
 
-    def member(E):
-        mu, lam = lame_parameters(E, 0.3)
-        return base.replace(mu=torch.full_like(base.mu, mu), lam=torch.full_like(base.lam, lam))
 
-    sim, stats, seconds, launches, cg_calls, peak, xs = sweep_run(
-        scene, cfg, stack_states([member(E) for E in Es]), steps, dt)
-    want = batch_launches(stats, cg_calls)
-    B = len(Es)
-    newton = [[s.newton_iters[b] for s in stats] for b in range(B)]
-    cg = [[s.cg_iters[b] for s in stats] for b in range(B)]
-    row = dict(scene=name, res=cfg.grid_res[0], dtype=str(dtype), members=B,
-               particles_per_member=base.n, E=Es, steps=steps, dt=dt, seconds=seconds,
-               member_steps_per_s=B * steps / seconds, newton=newton, cg=cg,
-               converged=all(all(s.converged) for s in stats), retries=sim.retry_count,
-               batched_cg_per_solve=[max(i) for i in cg_calls], launches=launches,
-               launches_expected=want, max_memory_allocated=peak)
-    bad = []
-    if launches != want or sim.retry_count or not row["converged"]:
-        bad.append("batch")
-    # the derivation's inputs agree with the stats: one CG solve per batched
-    # Newton iteration, each member's CG iterations summing to its counts
-    if len(cg_calls) != sum(max(s.newton_iters) for s in stats) or [
-            sum(i[b] for i in cg_calls) for b in range(B)] != [sum(c) for c in cg]:
-        bad.append("cg_calls")
-    alone_rows, alone_seconds, alone_runs, alone_peak = [], 0.0, 0, 0
-    for b in alone_members:
-        sim_b, stats_b, sec_b, launches_b, _, peak_b, xs_b = sweep_run(
-            scene, cfg, member(Es[b]), steps, dt)
-        alone_seconds, alone_runs = alone_seconds + sec_b, alone_runs + 1
-        alone_peak = max(alone_peak, peak_b)
-        x_diff = [float((xb[b] - xa).abs().max()) / cfg.dx for xb, xa in zip(xs, xs_b)]
-        r = dict(member=b, E=Es[b], newton_alone=[s.newton_iters for s in stats_b],
-                 cg_alone=[s.cg_iters for s in stats_b], x_diff_over_dx=x_diff,
-                 launches=launches_b, x_limit=x_tol)
-        if spread is not None:
-            lone = [xs_b]
-            r["alone_again_counts_equal"] = []
-            for _ in range(runs - 1):
-                again = sweep_run(scene, cfg, member(Es[b]), steps, dt)
-                alone_seconds, alone_runs = alone_seconds + again[2], alone_runs + 1
-                r["alone_again_counts_equal"].append(
-                    [s.newton_iters for s in again[1]] == r["newton_alone"])
-                lone.append(again[-1])
-                del again
-            r["alone_again_x_diff_over_dx"] = max(
-                float((xa - xc).abs().max()) / cfg.dx
-                for i, a in enumerate(lone) for c in lone[i + 1:] for xa, xc in zip(a, c))
-            r["x_limit"] = max(x_tol, spread * r["alone_again_x_diff_over_dx"])
-            del lone
-        alone_rows.append(r)
-        if (r["newton_alone"] != newton[b] or sim_b.retry_count
-                or any(abs(a - c) > cg_diff for a, c in zip(r["cg_alone"], cg[b]))
-                or max(x_diff) > r["x_limit"]):
-            bad.append(f"member {b}")
-        del sim_b, xs_b
-    row.update(alone=alone_rows, alone_seconds=alone_seconds,
-               alone_member_steps_per_s=alone_runs * steps / alone_seconds,
-               alone_max_memory_allocated=alone_peak,
-               limits=dict(newton="equal", cg_diff=cg_diff, x_diff_over_dx=x_tol,
-                           x_spread_factor=spread))
-    return row, bad
+def hold_to_lone(newton, cg, xs, lone, dx, cg_diff, x_tol, spread=None, cap=None):
+    """Member b of a batch (its Newton and CG per step, its x per step)
+    against its lone runs `lone` ((stats, x per step) each): at every step a
+    lone run took the batch's Newton count with CG within cg_diff, and x is
+    within the limit of the nearest lone run, the limit being the larger of
+    x_tol and `spread` times the lone runs' largest mutual difference (in
+    dx), which may not pass `cap`. With one lone run: Newton equal, CG
+    within cg_diff, x within x_tol. Returns (nearest, limit, lone spread,
+    what failed)."""
+    failed = []
+    for k, (n, c) in enumerate(zip(newton, cg)):
+        if not any(s[k].newton_iters == n and abs(s[k].cg_iters - c) <= cg_diff
+                   for s, _ in lone):
+            failed.append(f"counts at step {k}")
+    nearest = min(max(float((xb - xa).abs().max()) for xb, xa in zip(xs, x)) / dx
+                  for _, x in lone)
+    lone_spread = max((max(float((xa - xc).abs().max()) for xa, xc in zip(a[1], c[1])) / dx
+                       for i, a in enumerate(lone) for c in lone[i + 1:]), default=0.0)
+    limit = max(x_tol, (spread or 0.0) * lone_spread)
+    if cap is not None and lone_spread > cap:
+        failed.append(f"lone runs part by {lone_spread} dx")
+    if nearest > limit:
+        failed.append(f"x {nearest} dx")
+    return nearest, limit, lone_spread, failed
 
 
 def batch_phase(rng, card):
@@ -1380,13 +1373,18 @@ def batch_phase(rng, card):
             del c, members
             torch.cuda.empty_cache()
     sweeps = {}
-    for label, args in (
-            ("bar", ("twisting_bar_3d", dict(res=SWEEP_RES, ppc=8), SWEEP_E, torch.float32,
-                     SWEEP_STEPS, DT, range(len(SWEEP_E)), 2, X_TOL)),
-            ("drop", ("block_drop_2d", dict(res=64), DROP_E, torch.float64, DROP_STEPS, DT,
-                      DROP_ALONE, 1, DROP_X_TOL, DROP_SPREAD, DROP_RUNS))):
-        row, bad = sweep_against_alone(*args)
-        emit("batch", card=card, case=f"sweep_{label}", **row)
+    for label, name, kw, Es, dtype, steps, alone, limits in (
+            ("bar", "twisting_bar_3d", dict(res=SWEEP_RES, ppc=8), SWEEP_E, torch.float32,
+             SWEEP_STEPS, range(len(SWEEP_E)),
+             dict(cg_diff=2, x_tol=X_TOL, spread=SWEEP_SPREAD, runs=SWEEP_RUNS,
+                  cap=SWEEP_SPREAD_CAP)),
+            ("drop", "block_drop_2d", dict(res=64), DROP_E, torch.float64, DROP_STEPS,
+             DROP_ALONE, dict(cg_diff=1, x_tol=DROP_X_TOL, spread=DROP_SPREAD,
+                              runs=DROP_RUNS, cap=DROP_SPREAD_CAP))):
+        scene, members = scene_members(name, kw, Es, dtype)
+        row, bad, _ = solver_sweep(label, "cg", scene, scene["cfg"], members, steps, DT, alone,
+                                   **limits)
+        emit("batch", card=card, case=f"sweep_{label}", scene=name, E=Es, **row)
         if bad:
             raise AssertionError(f"sweep {label}: {bad}; {row}")
         sweeps[label] = row
@@ -1394,6 +1392,441 @@ def batch_phase(rng, card):
     assert sum(sum(n) for n in sweeps["bar"]["newton"]) > 0, sweeps["bar"]
     assert min(sum(n) for n in sweeps["drop"]["newton"]) > 0, sweeps["drop"]
     return batch_summary, sweeps
+
+
+# ---- the batch under HOT's multigrid, the sparse grid and the other solvers
+
+# (b): three members alone (the softest, a middle one, the stiffest); fp64
+# multigrid runs on the card part by ~1e-14 dx, so one lone run each
+SOLVER_STEPS = 3
+SOLVER_ALONE = (0, 4, 7)
+# (c): the 128^3 bar at the 4 stiffest of SWEEP_E (1e6 .. 2.83e6), 3 steps
+# after phase sparse's 2 loading steps (at the scene's E 1e6); the softest
+# and the stiffest member also alone
+WIDE_E = SWEEP_E[4:]
+WIDE_STEPS = 3
+WIDE_ALONE = (0, 3)
+# (d): the 64^2 drop at the 16 stiffnesses of DROP_E through impact (t =
+# 0.244 s), members 0 and 15 alone twice each under MINRES and the explicit
+# BSR (dt 4e-3). L-BFGS runs at dt 2e-3: at 4e-3 the stiff members exhaust
+# max_cg iterations after impact and the shared dt is halved for the whole
+# batch. Its lone runs reproduce on the card only for the softer members:
+# two lone runs of a stiff member part in their iteration counts after
+# impact, as L-BFGS's line search and CN test turn on the atomics' order.
+# So members 0 and 5 are held and member 15 is a witness, recorded
+DROP_SOLVER_DT = 4e-3
+DROP_SOLVER_STEPS = 66
+DROP_SOLVER_ALONE = (0, 15)
+LBFGS_DT = 2e-3
+LBFGS_STEPS = 127
+LBFGS_ALONE = (0, 5)
+LBFGS_WITNESS = (15,)
+
+
+def shifted_member(state, cells, dx):
+    """The state moved by `cells` cells along y: another tile set."""
+    shift = torch.zeros(3, dtype=state.x.dtype, device=state.x.device)
+    shift[1] = cells * dx
+    return state.replace(x=state.x + shift)
+
+
+def member_cells(b):
+    """Member b's shift in cells: a whole tile and 1.5 cells per member,
+    the batch centred on the scene (64^3 bar: y from 4 to 54 of 64)."""
+    from hot_tpu_torch.grid import sparse
+
+    return (b - len(SWEEP_E) // 2) * (sparse.TILE + 1.5)
+
+
+def batch_tiled_inputs(dtype, rng, res=SWEEP_RES):
+    """Phase 20a's inputs: len(SWEEP_E) members of the res^3 bar, each moved
+    by member_cells(b) (its own tile set), with its own E, F perturbation
+    (0.1) and grid vectors over the batch's compact nodes. Returns the
+    stacked set (with the batch's tile grid) and the members' own sets (each
+    on its own tile grid, its compact rows of the batch's vectors)."""
+    from hot_tpu_torch.grid import sparse
+    from hot_tpu_torch.models.constitutive import MODEL_REGISTRY, lame_parameters
+    from hot_tpu_torch.ops.fused_apply import soa
+    from hot_tpu_torch.scenes import build_scene
+
+    state = build_scene("twisting_bar_3d", device="cuda", dtype=dtype, res=res, ppc=8)["state"]
+    n, grid, dx = state.n, (res,) * 3, 1.0 / res
+    xs = [shifted_member(state, member_cells(b), dx).x for b in range(len(SWEEP_E))]
+    tg = sparse.build_tile_grid(torch.stack(xs), dx, grid, capacity=10 ** 9)
+    common = dict(model=MODEL_REGISTRY["fixed_corotated"], dx=dx, res=grid, n=n, d=3,
+                  project=True, kernel="quadratic", groups=[])
+    Fs, mus, lams = [], [], []
+    for k, E in enumerate(SWEEP_E):
+        mrng = np.random.default_rng([int(rng.integers(2 ** 31)), k])
+        mu, lam = lame_parameters(E, 0.3)
+        Fs.append(state.F + torch.as_tensor(0.1 * mrng.standard_normal((n, 3, 3)), dtype=dtype,
+                                            device="cuda"))
+        mus.append(torch.full_like(state.mu, mu))
+        lams.append(torch.full_like(state.lam, lam))
+    B = len(SWEEP_E)
+    v, w = (torch.as_tensor(rng.standard_normal((B, tg.n_cnodes, 3)), dtype=dtype,
+                            device="cuda") for _ in range(2))
+    stacked = dict(common, x_soa=soa(torch.stack(xs), 1), F_soa=soa(torch.stack(Fs), 1), v=v,
+                   w=w, mu=torch.stack(mus), lam=torch.stack(lams),
+                   V0=torch.stack([state.V0] * B), tgrid=tg,
+                   st=sparse.sparse_stencil(torch.stack(xs), dx, tg))
+    members = []
+    for b in range(B):
+        own = tg.member(b)
+
+        def own_rows(t, b=b, rows=own.n_cnodes - 1):
+            return torch.cat([t[b, :rows], t[b, -1:]])
+
+        members.append(dict(common, x_soa=soa(xs[b]), F=Fs[b], F_soa=soa(Fs[b]), v=own_rows(v),
+                            w=own_rows(w), mu=mus[b], lam=lams[b], V0=state.V0, tgrid=own,
+                            own_rows=own_rows, st=sparse.sparse_stencil(xs[b], dx, own)))
+    return stacked, members
+
+
+def check_batch_tiled_kernels(c, members, timing):
+    """Phase 20a: both particle kernels on a batch's tile grid (one launch
+    each) against their plain versions on the same batch, per member (f, A,
+    b+- and df; U and V may differ by paired column signs), and every output
+    against the member's own single launch on its own tile grid; the
+    counters move by one per batched call. With `timing` (fp32): device ms
+    of one batched launch and of the members' single launches together,
+    the plain batched call's ms, and the bound from the members' touched
+    nodes and their tiles' lookup entries."""
+    from hot_tpu_torch.ops import fused_apply as fa
+    from hot_tpu_torch.ops import fused_linearize as fl
+
+    B, dtype, tg = len(members), c["v"].dtype, c["tgrid"]
+    lin = lin_args(c) + (tg,)
+    lin0, app0 = fl.launches, fa.launches
+    got = fl.fused_linearize_cuda(*lin)
+    want = fl.fused_linearize_plain(*lin)
+    apply = (c["w"],) + apply_args(c, want[1:])[1:] + (tg,)
+    got_df = fa.fused_apply_cuda(*apply)
+    launches = {"fused_linearize": fl.launches - lin0, "fused_apply": fa.launches - app0}
+    want_df = fa.fused_apply_plain(*apply)
+    names = ("f", "U", "V", "A", "b_plus", "b_minus", "df")
+    errs = {}
+    single_calls = []
+    for b, m in enumerate(members):
+        own = m["own_rows"]
+        m_lin = lin_args(m) + (m["tgrid"],)
+        m_apply = (m["w"],) + apply_args(m, tuple(t[b] for t in want[1:]))[1:] + (m["tgrid"],)
+        single_calls.append((m_lin, m_apply))
+        alone = fl.fused_linearize_cuda(*m_lin) + (fa.fused_apply_cuda(*m_apply),)
+        for name, i in (("f", 0), ("A", 3), ("b_plus", 4), ("b_minus", 5)):
+            errs[f"lin_{name}[{b}]"] = rel_err(got[i][b], want[i][b])
+        errs[f"apply_df[{b}]"] = rel_err(got_df[b], want_df[b])
+        for name, g, a in zip(names, got + (got_df,), alone):
+            # f and df over the member's own compact rows
+            errs[f"alone_{name}[{b}]"] = rel_err(own(g) if name in ("f", "df") else g[b], a)
+    tol = TOL[dtype]
+    limits = {k: tol["apply"] if "df" in k else tol["linearize"] for k in errs}
+    bad = {k: v[1] for k, v in errs.items() if not v[1] <= limits[k]}
+    worst = {key: max(v[1] for k, v in errs.items() if k.startswith(key + "["))
+             for key in ("lin_f", "lin_A", "lin_b_plus", "lin_b_minus", "apply_df")
+             + tuple(f"alone_{n}" for n in names)}
+    out = dict(members=B, particles_per_member=c["n"], tiles=tg.member_tiles,
+               slots_per_member=tg.n_active, dtype=str(dtype),
+               launches_per_batched_call=launches, rel_err_worst_member=worst,
+               max_abs_err=max(v[0] for k, v in errs.items() if k.startswith("lin_f[")),
+               max_abs_err_apply=max(v[0] for k, v in errs.items() if k.startswith("apply_df[")),
+               limits=TOL[dtype])
+    if launches != {"fused_linearize": 1, "fused_apply": 1}:
+        bad["launches"] = launches
+    if timing:
+        touched = [int(torch.unique(m["st"].node_ids).numel()) for m in members]
+        clamped = float(np.mean([clamp_share(m) for m in members]))
+        calls = {"fused_linearize": lambda: fl.fused_linearize_cuda(*lin),
+                 "fused_apply": lambda: fa.fused_apply_cuda(*apply)}
+        singles = {"fused_linearize": lambda: [fl.fused_linearize_cuda(*a)
+                                               for a, _ in single_calls],
+                   "fused_apply": lambda: [fa.fused_apply_cuda(*a) for _, a in single_calls]}
+        plain = {"fused_linearize": lambda: fl.fused_linearize_plain(*lin),
+                 "fused_apply": lambda: fa.fused_apply_plain(*apply)}
+        for name in calls:
+            nbytes = sum(particle_kernel_bytes(name, c["n"], t, 3, 4) + 4 * k
+                         for t, k in zip(touched, tg.member_tiles))
+            flops = B * c["n"] * (FLOPS_PER_PARTICLE[name, 3]
+                                  + (CLAMP_FLOPS * clamped if name == "fused_linearize" else 0))
+            row = dict(bytes=nbytes, flops=flops)
+            row["ms"], row["ms_source"] = device_ms(calls[name], 20, name + "_kernel")
+            single_ms, _ = device_ms(singles[name], 10, name + "_kernel")
+            row["singles_ms"] = B * single_ms
+            row["plain_ms"] = cuda_time_ms(plain[name], 2)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            out[name] = row
+        out["clamp_share"] = clamped
+    return out, bad
+
+
+class LastPrecond:
+    """The last multigrid preconditioner built inside (its operators)."""
+
+    def __init__(self, mg_mod):
+        self.mg_mod, self.orig, self.pre = mg_mod, mg_mod.build_precond, None
+
+    def __enter__(self):
+        def kept(*args, **kw):
+            self.pre = self.orig(*args, **kw)
+            return self.pre
+
+        self.mg_mod.build_precond = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mg_mod.build_precond = self.orig
+
+
+def member_rows(mat, b):
+    """Member b's own rows of a batch's BSR operator, as one operator's
+    (vals, col_row): its active rows, columns into them."""
+    R = mat.member_rows
+    own = int((mat.node_of[b * R:(b + 1) * R] < mat.row_of.shape[0]).sum())
+    rows = slice(b * R, b * R + own)
+    col = mat.col_row[rows]
+    return mat.vals[rows].contiguous(), torch.where(col >= 0, col - b * R, col).contiguous()
+
+
+def check_batch_spmv(mat, rng):
+    """Phase 20b: bsr_spmv over a batch's level-0 operator (all members'
+    rows, one launch) against its plain version, and against one SpMV per
+    member on its own rows; device ms of both, the plain version's and the
+    library call's, the bound from the batch's blocks."""
+    from hot_tpu_torch.ops import bsr_spmv as sp
+
+    B, R, d, dtype = mat.batch, mat.n_rows, mat.dim, mat.vals.dtype
+    x = torch.as_tensor(rng.standard_normal((R, d)), dtype=dtype, device="cuda")
+    args = (mat.vals, mat.col_row, x)
+    got, want = sp.bsr_spmv_cuda(*args), sp.bsr_spmv_plain(*args)
+    err, rel = rel_err(got, want)
+    singles = []
+    for b in range(B):
+        vals, col = member_rows(mat, b)
+        xb = x[b * mat.member_rows:b * mat.member_rows + vals.shape[0]]
+        singles.append((vals, col, xb))
+        alone = rel_err(got[b * mat.member_rows:b * mat.member_rows + vals.shape[0]],
+                        sp.bsr_spmv_cuda(*singles[-1]))
+        rel = max(rel, alone[1])
+    nnz = int((mat.col_row >= 0).sum())
+    item = x.element_size()
+    nbytes = nnz * d * d * item + R * mat.K * 4 + 2 * R * d * item
+    flops = 2 * nnz * d * d * (1 if dtype == torch.float32 else 2)
+    A = library_bsr(mat)
+    lib = lambda: (A @ x.reshape(-1, 1)).reshape(R, d)  # noqa: E731
+    row = dict(members=B, rows=R, rows_per_member=mat.member_rows, K=mat.K, nnz_blocks=nnz,
+               bytes=nbytes, max_abs_err=err, rel_err=rel, limit=SPMV_TOL[dtype],
+               dtype=str(dtype))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["ms"], row["ms_source"] = device_ms(lambda: sp.bsr_spmv_cuda(*args), 50,
+                                            "bsr_spmv_kernel")
+    row["singles_ms"] = device_ms(lambda: [sp.bsr_spmv_cuda(*a) for a in singles], 20,
+                                  "bsr_spmv_kernel")[0] * B
+    row["plain_ms"] = cuda_time_ms(lambda: sp.bsr_spmv_plain(*args), 10)
+    row["library_ms"] = cuda_time_ms(lib, 50)
+    if not rel <= SPMV_TOL[dtype]:
+        raise AssertionError(f"batched bsr_spmv disagrees: {row}")
+    return row
+
+
+def batched_launches(kind, mgc, stats, cg_calls):
+    """The launches a batch's steps imply (each loop runs while any member
+    is active; stats and the solves per member): one linearize at v0 and one
+    per batched Newton iteration, or for L-BFGS one per batched iteration
+    (the gradient); per inner solve one apply per batched iteration plus
+    one for the initial residual (MINRES: two), through bsr_spmv for the
+    explicit BSR; and the multigrid's SpMVs and matrix-free level applies
+    (mg_spmv_launches, composed_apply_launches) over the batched Newton
+    iterations and CG iterations."""
+    newton = [max(s.newton_iters) for s in stats]
+    cg = [max(i) for i in cg_calls]
+    solves = len(cg_calls)
+    out = {"fused_linearize": sum(k + 1 for k in newton), "fused_apply": sum(cg) + solves,
+           "bsr_spmv": 0}
+    if kind == "lbfgs":
+        out["fused_apply"] = 0
+    elif kind == "minres":
+        out["fused_apply"] = sum(cg) + 2 * solves
+    elif kind == "explicit_bsr":
+        out["fused_apply"], out["bsr_spmv"] = 0, sum(cg) + solves
+    elif kind in ("config3", "composed"):
+        first = mgc.assembled_from_level
+        out["bsr_spmv"] = mg_spmv_launches(mgc, newton, cg, first)[2]
+        if first:
+            out["fused_apply"] = composed_apply_launches(mgc, newton, cg)
+    return out
+
+
+def solver_sweep(label, kind, scene, cfg, members, steps, dt, alone, cg_diff=None, x_tol=None,
+                 spread=None, runs=1, cap=None, t_start=0.0, witness=()):
+    """Phases 19 and 20: `members` (single states) stepped as one batch
+    under cfg (`kind` names the solver for batched_launches), then the
+    members `alone` and `witness` one at a time (`runs` times each), from
+    t_start: the batch's and the lone runs' (newton, cg) per member and
+    step, max |x_batch - x_alone| / dx, the launch counters against
+    batched_launches, member-steps/s of both, MG build ms per Newton, peak
+    memory. With cg_diff the lone runs hold the members `alone`
+    (hold_to_lone with x_tol, spread and cap); without, and for `witness`,
+    the counts and differences are recorded. Returns the row, what failed
+    and the operators of the last multigrid preconditioner built in the
+    batch (None without)."""
+    from hot_tpu_torch.sim.state import stack_states
+    from hot_tpu_torch.solver import multigrid as mg_mod
+
+    def run(state):
+        with BuildTimer(mg_mod) as bt:
+            *out, states = sweep_run(scene, cfg, state, steps, dt, t_start)
+        return (*out, [st.x for st in states], bt.ms())
+
+    with LastPrecond(mg_mod) as last:
+        sim, stats, seconds, launches, cg_calls, peak, xs, build_ms = run(stack_states(members))
+    mgc = cfg.solver.multigrid
+    want = batched_launches(kind, mgc, stats, cg_calls)
+    B = len(members)
+    newton = [[s.newton_iters[b] for s in stats] for b in range(B)]
+    cg = [[s.cg_iters[b] for s in stats] for b in range(B)]
+    row = dict(label=label, kind=kind, res=cfg.grid_res[0], dtype=str(members[0].x.dtype),
+               backend=cfg.grid_backend, members=B, particles_per_member=members[0].n,
+               steps=steps, dt=dt, seconds=seconds, member_steps_per_s=B * steps / seconds,
+               newton=newton, cg=cg, converged=all(all(s.converged) for s in stats),
+               retries=sim.retry_count, active_tiles=[s.active_tiles for s in stats],
+               batched_inner_per_solve=[max(i) for i in cg_calls], launches=launches,
+               launches_expected=want, max_memory_allocated=peak,
+               mg_build_ms_per_newton=float(np.mean(build_ms)) if build_ms else None)
+    bad = []
+    if (launches != want or sim.retry_count or not row["converged"]
+            or not bool(torch.isfinite(sim.state.x).all())):
+        bad.append("batch")
+    # the derivation's inputs agree with the stats: one inner solve per
+    # batched Newton iteration, each member's iterations summing to its counts
+    if kind not in ("lbfgs",) and (
+            len(cg_calls) != sum(max(s.newton_iters) for s in stats)
+            or [sum(i[b] for i in cg_calls) for b in range(B)] != [sum(c) for c in cg]):
+        bad.append("cg_calls")
+    del sim
+    mats = None if last.pre is None else last.pre.mats
+    alone_rows, alone_seconds, alone_runs, alone_peak = [], 0.0, 0, 0
+    for b in tuple(alone) + tuple(witness):
+        lone = []
+        for _ in range(runs):
+            sim_b, stats_b, sec_b, launches_b, _, peak_b, xs_b, build_b = run(members[b])
+            alone_seconds, alone_runs = alone_seconds + sec_b, alone_runs + 1
+            alone_peak = max(alone_peak, peak_b)
+            lone.append((stats_b, xs_b, sim_b.retry_count, build_b))
+            del sim_b
+        stats_b, xs_b, retries_b, build_b = lone[0]
+        held = b in alone and cg_diff is not None
+        nearest, limit, lone_spread, failed = hold_to_lone(
+            newton[b], cg[b], [x[b] for x in xs], [o[:2] for o in lone], cfg.dx,
+            cg_diff or 0, x_tol or 0.0, spread, cap)
+        r = dict(member=b, held=held, newton_alone=[s.newton_iters for s in stats_b],
+                 cg_alone=[s.cg_iters for s in stats_b],
+                 x_diff_over_dx=[float((xb[b] - xa).abs().max()) / cfg.dx
+                                 for xb, xa in zip(xs, xs_b)],
+                 x_nearest_over_dx=nearest, retries=[o[2] for o in lone],
+                 mg_build_ms_per_newton=float(np.mean(build_b)) if build_b else None)
+        if runs > 1:
+            r["alone_again_counts"] = [[s.newton_iters for s in o[0]] for o in lone[1:]]
+            r["alone_again_cg"] = [[s.cg_iters for s in o[0]] for o in lone[1:]]
+            r["alone_spread_over_dx"] = lone_spread
+        if b in alone and any(r["retries"]):
+            bad.append(f"member {b} retried alone")
+        if held:
+            r.update(x_limit=limit, failed=failed)
+            if failed:
+                bad.append(f"member {b}")
+        alone_rows.append(r)
+        del lone
+    row.update(alone=alone_rows, alone_seconds=alone_seconds,
+               alone_member_steps_per_s=alone_runs * steps / max(alone_seconds, 1e-9),
+               alone_max_memory_allocated=alone_peak,
+               limits=None if cg_diff is None else dict(
+                   newton="a lone run's", cg_diff=cg_diff, x_diff_over_dx=x_tol,
+                   x_spread_factor=spread, spread_cap_over_dx=cap, runs=runs))
+    return row, bad, mats
+
+
+def batch_solvers_phase(rng, card):
+    """Phase 20 (see the module doc): (a) the particle kernels on a batch's
+    tile grid; (b) the 64^3 bar under config 3 dense and sparse and the
+    composed level, fp64, and bsr_spmv over the batch's level-0 rows; (c)
+    the 128^3 bar under config 3 on the sparse grid, fp32; (d) the 64^2
+    drop under MINRES, L-BFGS and the explicit BSR, fp64. Returns the rows
+    the kernels line reads."""
+    from hot_tpu_torch.scenes import build_scene
+    from hot_tpu_torch.sim import Simulation
+    from hot_tpu_torch.utils.config import config_from_overrides
+
+    out = {}
+    # (a)
+    for dtype in (torch.float32, torch.float64):
+        c, members = batch_tiled_inputs(dtype, rng)
+        row, bad = check_batch_tiled_kernels(c, members, timing=dtype == torch.float32)
+        emit("batch_solvers", card=card, case="tiled_kernels", **row)
+        if bad:
+            raise AssertionError(f"batched tile-grid kernel disagrees: {bad}")
+        if dtype == torch.float32:
+            out["tiled"] = row
+        del c, members
+        torch.cuda.empty_cache()
+    # (b)
+    sparse_cfg = {"grid_backend": "sparse", "tile_capacity": 4096}
+    scene, members = scene_members("twisting_bar_3d", dict(res=SWEEP_RES, ppc=8), SWEEP_E,
+                                   torch.float64)
+    mg_cases = (("config3_dense", "config3", config3(scene["cfg"])),
+                ("config3_sparse", "config3",
+                 config_from_overrides(config3(scene["cfg"]), sparse_cfg)),
+                ("composed", "composed", config_from_overrides(
+                    config3(scene["cfg"]), {"solver.multigrid.assembled_from_level": 1})))
+    out["mg"] = {}
+    for label, kind, cfg in mg_cases:
+        row, bad, mats = solver_sweep(label, kind, scene, cfg, members, SOLVER_STEPS, DT,
+                                      SOLVER_ALONE, 1, DROP_X_TOL)
+        if label == "config3_dense":
+            out["spmv"] = check_batch_spmv(mats[0], rng)
+            row["spmv_level0"] = out["spmv"]
+        emit("batch_solvers", card=card, case=label, **row)
+        if bad:
+            raise AssertionError(f"batch_solvers {label}: {bad}; {row}")
+        assert sum(sum(n) for n in row["newton"]) > 0, row
+        out["mg"][label] = row
+        del mats
+        torch.cuda.empty_cache()
+    del scene, members
+    # (c)
+    scene = build_scene("twisting_bar_3d", device="cuda", res=SPARSE_RES, ppc=8)
+    sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
+    run_steps(sim, 2, DT)
+    start, t_start = sim.state, sim.t
+    del sim
+    cfg = config_from_overrides(config3(scene["cfg"]), sparse_cfg)
+    row, bad, _ = solver_sweep("wide", "config3", scene, cfg, [with_E(start, E) for E in WIDE_E],
+                               WIDE_STEPS, DT, WIDE_ALONE, t_start=t_start)
+    emit("batch_solvers", card=card, case="wide_128", E=WIDE_E, **row)
+    if bad:
+        raise AssertionError(f"batch_solvers wide: {bad}; {row}")
+    out["wide"] = row
+    del scene, start
+    torch.cuda.empty_cache()
+    # (d)
+    out["drop"] = {}
+    for kind, over, dt, steps, alone, witness in (
+            ("minres", {"solver.linear_solver": "minres"}, DROP_SOLVER_DT, DROP_SOLVER_STEPS,
+             DROP_SOLVER_ALONE, ()),
+            ("lbfgs", {"solver.nonlinear": "lbfgs"}, LBFGS_DT, LBFGS_STEPS, LBFGS_ALONE,
+             LBFGS_WITNESS),
+            ("explicit_bsr", {"solver.matrix_free": False}, DROP_SOLVER_DT, DROP_SOLVER_STEPS,
+             DROP_SOLVER_ALONE, ())):
+        scene, members = scene_members("block_drop_2d", dict(res=64), DROP_E, torch.float64)
+        cfg = config_from_overrides(scene["cfg"], over)
+        row, bad, _ = solver_sweep(f"drop_{kind}", kind, scene, cfg, members, steps, dt, alone, 1,
+                                   DROP_X_TOL, DROP_SPREAD, 2, DROP_SPREAD_CAP, witness=witness)
+        emit("batch_solvers", card=card, case=f"drop_{kind}", E=DROP_E, **row)
+        if bad:
+            raise AssertionError(f"batch_solvers drop {kind}: {bad}; {row}")
+        assert min(sum(n) for n in row["newton"]) > 0, row
+        out["drop"][kind] = row
+    return out
 
 
 def main(argv=None):
@@ -1410,7 +1843,7 @@ def main(argv=None):
     from hot_tpu_torch.ops import fused_linearize as fl
     from hot_tpu_torch.scenes import SCENES, build_scene, stress_state
     from hot_tpu_torch.sim import Simulation
-    from hot_tpu_torch.sim.state import state_from_numpy
+    from hot_tpu_torch.sim.state import FIELDS, state_from_numpy
     from hot_tpu_torch.solver import multigrid as mg_mod
     from hot_tpu_torch.utils.config import config_from_overrides
 
@@ -1981,9 +2414,12 @@ def main(argv=None):
 
     # ---- 16 sparse: the 128^3 bar, dense against sparse backend under
     # block-Jacobi and config 3, 6 steps each from one loaded state; then
-    # each block-Jacobi step again on the sparse grid from the dense run's
-    # state before it (6 fp32 steps apart, the two runs' atomics orders
-    # alone part their trajectories, as two dense runs part)
+    # each block-Jacobi step again from the dense run's state before it, cast
+    # to fp64, once on each grid (6 fp32 steps apart, the two runs' atomics
+    # orders alone part their trajectories, as two dense runs part; and in
+    # fp32 a step on a Newton threshold takes one more or one fewer Newton
+    # iteration by the order of the atomic adds, which once failed this
+    # check on an honest tree, so the stepwise pairs run in fp64)
     scene = build_scene("twisting_bar_3d", device="cuda", res=SPARSE_RES, ppc=8)
     sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
     run_steps(sim, 2, DT)
@@ -2030,19 +2466,24 @@ def main(argv=None):
         exact = label == "block_jacobi"
         stepwise = []
         if exact:
-            cfg = config_from_overrides(scene["cfg"], sparse_cfg)
             for k, stats_k in enumerate(sd):
-                (state_k, t_k), (after, _) = dense_states[k], dense_states[k + 1]
-                sim = Simulation(cfg, state_k, scene["model"], scene["colliders"])
-                sim.t = t_k
-                st = sim.step(DT)
-                stepwise.append(dict(newton=(stats_k.newton_iters, st.newton_iters),
-                                     cg=(stats_k.cg_iters, st.cg_iters),
-                                     x_diff_over_dx=float((after.x - sim.state.x).abs().max())
-                                     / scene["cfg"].dx))
-                del sim
+                state_k, t_k = dense_states[k]
+                state_k = state_k.replace(**{f: getattr(state_k, f).double() for f in FIELDS})
+                after = {}
+                for backend, cfg in (("dense", scene["cfg"]),
+                                     ("sparse", config_from_overrides(scene["cfg"], sparse_cfg))):
+                    sim = Simulation(cfg, state_k, scene["model"], scene["colliders"])
+                    sim.t = t_k
+                    after[backend] = (sim.step(DT), sim.state.x)
+                    del sim
+                (dn, dx_), (sp_, sx) = after["dense"], after["sparse"]
+                stepwise.append(dict(newton=(dn.newton_iters, sp_.newton_iters),
+                                     cg=(dn.cg_iters, sp_.cg_iters),
+                                     x_diff_over_dx=float((dx_ - sx).abs().max())
+                                     / scene["cfg"].dx,
+                                     fp32_dense=(stats_k.newton_iters, stats_k.cg_iters)))
         emit("sparse", preconditioner=label, trajectories=pairs, x_diff_over_dx=diff,
-             dense_against_sparse_per_step=stepwise,
+             dense_against_sparse_per_step_fp64=stepwise,
              limits=dict(newton="equal", cg_diff=2, x_diff_over_dx=X_TOL) if exact else None)
         for r in stepwise:
             assert r["newton"][0] == r["newton"][1], stepwise
@@ -2163,6 +2604,11 @@ def main(argv=None):
     # ---- 19 batch: the batched kernels and the two stiffness sweeps
     batch_summary, sweeps = batch_phase(rng, card)
     lap("batch")
+
+    # ---- 20 batch_solvers: the batch on the tile grid, under HOT's
+    # multigrid, MINRES, L-BFGS and the explicit BSR
+    solvers = batch_solvers_phase(rng, card)
+    lap("batch_solvers")
     emit("runtime", seconds=laps, total_seconds=sum(laps.values()))
 
     spmv = summary["spmv"]
@@ -2212,6 +2658,25 @@ def main(argv=None):
                 "bound_ms": row[name]["bound_ms"], "bound_by": row[name]["bound_by"],
                 "library_ms": None}
 
+    def tiled_batch_row(name):
+        """The batched launch on a batch's tile grid: launches on the 128^3
+        sweep under config 3 on the sparse grid (4 members, phase
+        batch_solvers (c)), the worst member's error against the plain
+        version and device ms of one launch of 8 members of the 64^3 bar,
+        each on its own tile set (fp32, (a))."""
+        row = solvers["tiled"]
+        return {"name": f"{name}_compact_batched", "route": "cuda",
+                "source": f"hot_tpu_torch/csrc/{name}.cu",
+                "replaces": {"fused_linearize": "hot_tpu/ops/pallas_linearize.py:374",
+                             "fused_apply": "hot_tpu/ops/pallas_apply.py:143"}[name],
+                "launches": solvers["wide"]["launches"][name],
+                "max_abs_err": row["max_abs_err" if name == "fused_linearize"
+                                   else "max_abs_err_apply"],
+                "ms": row[name]["ms"], "plain_ms": row[name]["plain_ms"],
+                "bound_ms": row[name]["bound_ms"], "bound_by": row[name]["bound_by"],
+                "library_ms": None}
+
+    batch_spmv = solvers["spmv"]
     print(json.dumps({"kernels": [
         particle_row("fused_linearize", "quadratic"),
         particle_row("fused_apply", "quadratic"),
@@ -2226,6 +2691,16 @@ def main(argv=None):
          "launches": mg_counts["bsr_spmv"], "max_abs_err": spmv["max_abs_err"],
          "ms": spmv["ms"], "plain_ms": spmv["plain_ms"], "bound_ms": spmv["bound_ms"],
          "bound_by": spmv["bound_by"], "library_ms": spmv["library_ms"]},
+        tiled_batch_row("fused_linearize"),
+        tiled_batch_row("fused_apply"),
+        # launches: the three multigrid sweeps of (b), 8 members each; times
+        # of one SpMV over the 8 members' level-0 rows (fp64, config 3 dense)
+        {"name": "bsr_spmv_batched", "route": "cuda", "source": "hot_tpu_torch/csrc/bsr_spmv.cu",
+         "replaces": "hot_tpu/ops/bsr_tiled.py:387",
+         "launches": sum(r["launches"]["bsr_spmv"] for r in solvers["mg"].values()),
+         "max_abs_err": batch_spmv["max_abs_err"], "ms": batch_spmv["ms"],
+         "plain_ms": batch_spmv["plain_ms"], "bound_ms": batch_spmv["bound_ms"],
+         "bound_by": batch_spmv["bound_by"], "library_ms": batch_spmv["library_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@
 //
 // A batch of members (one problem each, the same particle count n and grid
 // size) is one launch: blockIdx.y is the member, whose SoA arrays and grid
-// vectors follow the previous member's (hot::member_offset). A block never
+// vectors (and, on a tile grid, its lookup) follow the previous member's
+// (hot::member_offset, Grid::for_member). A block never
 // spans two members, so each member's blocks, windows and sums are what they
 // are alone; batch 1 is the single launch.
 //
@@ -57,7 +58,7 @@ fused_apply_kernel(const T* __restrict__ w, const T* __restrict__ x, T dx, hot::
   bp += hot::member_offset(NP * n);
   bm += hot::member_offset(NP * n);
   V0 += hot::member_offset(n);
-  hot::window_frame<T, D, SW, Tiled>(w, x, dx, grid, df, n, window_nodes, stats, smem, s_box,
+  hot::window_frame<T, D, SW, Tiled>(w, x, dx, grid.for_member(), df, n, window_nodes, stats, smem, s_box,
                              [&](const T* src, const auto& map,
                                  const hot::Stencil<T, D, SW>& s, const int off[D][SW],
                                  T M[D][D]) {
@@ -195,7 +196,8 @@ int dispatch(int dtype, int dim, const void* w, const void* x, double dx, const 
 // with `tile` nodes per tile axis (> 0); n: particles per member; nodes: grid
 // nodes per member (the rows of w and df); batch: members, 1 to
 // hot::kMaxBatch, each with its own x, F, U, V, A, b+/-, V0, w and df after
-// the previous member's (the members share res and the lookup); threads: a
+// the previous member's (the members share res; on a batch's tile grid each
+// has its own lookup, one after another, Grid::for_member); threads: a
 // multiple of 32 up to 256; window_nodes: the largest node box a block takes
 // through shared memory (0: every block through global memory); stats: NULL
 // or hot::kStatCount uint64 counters, summed over the batch. Returns the

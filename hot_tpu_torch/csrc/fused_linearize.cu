@@ -66,7 +66,7 @@ fused_linearize_kernel(const T* __restrict__ v, const T* __restrict__ x, T dx,
   Ao += hot::member_offset(DD * n);
   bpo += hot::member_offset(NP * n);
   bmo += hot::member_offset(NP * n);
-  hot::window_frame<T, D, SW, Tiled>(v, x, dx, grid, f, n, window_nodes, stats, smem, s_box,
+  hot::window_frame<T, D, SW, Tiled>(v, x, dx, grid.for_member(), f, n, window_nodes, stats, smem, s_box,
                              [&](const T* src, const auto& map,
                                  const hot::Stencil<T, D, SW>& s, const int off[D][SW],
                                  T M[D][D]) {

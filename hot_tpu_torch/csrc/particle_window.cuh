@@ -25,7 +25,10 @@
 // row is contiguous in memory only within a tile's run of `tile` nodes, so
 // the box load and flush take a run per thread and look its slot up once.
 // Tile-grid addressing is a template parameter (Tiled) of the frame and the
-// kernels: the dense instances compile to the code they had without it.
+// kernels: the dense instances compile to the code they had without it. A
+// batch's tile grid has one lookup per member, `tiles` entries each, one
+// after another: a block offsets the lookup to its member's
+// (Grid::for_member), as it offsets its member's arrays.
 //
 // Window: a block takes consecutive particles. Seeded in lattice order they
 // lie in a few cells, so the block reduces its particles' bases to a node box
@@ -90,6 +93,14 @@ struct Grid {
   const int* lookup;
   int tile, tile_nodes;
   int tile_stride[D];
+  long long tiles;  // logical tiles: the entries of one member's lookup
+
+  // This block's member's grid: its own lookup on a batch's tile grid.
+  __device__ __forceinline__ Grid for_member() const {
+    Grid g = *this;
+    if (lookup != nullptr) g.lookup += member_offset(tiles);
+    return g;
+  }
 };
 
 // A grid from the C interface's arguments (lookup may be null).
@@ -106,6 +117,7 @@ inline Grid<D> make_grid(const int* res, const int* lookup, int tile) {
     stride *= (res[a] + g.tile - 1) / g.tile;
     g.tile_nodes *= g.tile;
   }
+  g.tiles = stride;
   return g;
 }
 

@@ -29,6 +29,10 @@ fp32 without TF32 on the card) and added into the compressed-row BSR values.
 Cells go in chunks ordered by size, each chunk's working set under
 ``CHUNK_BYTES``. The mass part is the same Gram form over the fine nodes'
 scalar embedding weights, added on the blocks' diagonals.
+
+A batch's operator (``ops.bsr``'s block-diagonal layout) takes the
+members' particles and fine nodes as one set whose cell keys hold the
+member, so a cell, its Gram product and its rows belong to one member.
 """
 
 from __future__ import annotations
@@ -158,11 +162,25 @@ def _offset_ids(dim: int, width: int, half: int, device):
     return (torch.as_tensor(offs, device=device), torch.as_tensor(off_id, device=device))
 
 
+def _ext_size(res_L) -> int:
+    return int(np.prod([int(r) + 2 for r in res_L]))
+
+
+def _member_keys(keys, member, res_L):
+    """Cell keys of a batch's members apart: member * (ext_key range) + key."""
+    return keys if member is None else member * _ext_size(res_L) + keys
+
+
 def _cell_rows(mat: bsr_mod.BsrMatrix, res_L, cell_keys, offs):
     """(C, s) row of each cell's stencil node, -1 where it is no row."""
+    member = None
+    if mat.batch is not None:
+        member = torch.div(cell_keys, _ext_size(res_L), rounding_mode="floor")
+        cell_keys = cell_keys - member * _ext_size(res_L)
+        member = member[:, None]
     coords = _unext(cell_keys, res_L)[:, None, :] + offs[None]
-    nodes = bsr_mod.coords_to_nodes(res_L, mat.tgrid, coords)
-    return torch.where(nodes >= 0, mat.row_of[nodes.clamp(min=0)], -1)
+    nodes = bsr_mod.coords_to_nodes(res_L, mat.tgrid, coords, member)
+    return torch.where(nodes >= 0, mat.row_of[mat.node_ids(member, nodes.clamp(min=0))], -1)
 
 
 def _scatter_cells(out, mat: bsr_mod.BsrMatrix, rows, off_id, blocks):
@@ -203,8 +221,18 @@ def assemble_composed_galerkin(mat: bsr_mod.BsrMatrix, L: int, F_n, ctx: cm.Hess
 
     comp_base, comp_w, comp_dw: composed_particle_weights(x, dx, L).
     node_coords (nf, dim) and node_m (nf,): the fine level's node coords and
-    lumped masses (zero-mass nodes are left out)."""
+    lumped masses (zero-mass nodes are left out). A batch's operator takes
+    every array with a leading member dimension."""
     res_L = mat.res
+    member = node_member = None
+    if mat.batch is not None:
+        def members(t):
+            return torch.arange(mat.batch, device=t.device).repeat_interleave(t.shape[1])
+
+        member, node_member = members(F_n), members(node_m)
+        F_n, V0, comp_base, comp_w, comp_dw, node_coords, node_m = (
+            t.flatten(0, 1) for t in (F_n, V0, comp_base, comp_w, comp_dw, node_coords, node_m))
+        ctx = cm.HessianContext(*(t.flatten(0, 1) for t in ctx))
     dim = len(res_L)
     width = comp_w.shape[-1]
     assert mat.half == width - 1, (mat.half, width)
@@ -225,7 +253,8 @@ def assemble_composed_galerkin(mat: bsr_mod.BsrMatrix, L: int, F_n, ctx: cm.Hess
         # copy and the scatter indices
         return item * (4 * cap * modes * sd + 3 * sd * sd) + 16 * s * s
 
-    for cell_keys, items in _cell_chunks(ext_key(comp_base, res_L), particle_cell_bytes):
+    for cell_keys, items in _cell_chunks(_member_keys(ext_key(comp_base, res_L), member, res_L),
+                                         particle_cell_bytes):
         C, cap = items.shape
         p = items.reshape(-1).clamp(min=0)
         _, gwn = tensor_weights(comp_w[p], comp_dw[p])
@@ -247,7 +276,8 @@ def assemble_composed_galerkin(mat: bsr_mod.BsrMatrix, L: int, F_n, ctx: cm.Hess
     sm = rows_w.shape[1]
     m_offs, m_off_id = _offset_ids(dim, m_width, mat.half, device)
     scal = torch.zeros((mat.n_rows * K,), dtype=dtype, device=device)
-    for cell_keys, items in _cell_chunks(ext_key(nb, res_L),
+    live_member = None if node_member is None else node_member[live]
+    for cell_keys, items in _cell_chunks(_member_keys(ext_key(nb, res_L), live_member, res_L),
                                          lambda cap: item * (cap * sm + 2 * sm * sm)):
         W = torch.where((items >= 0)[..., None], rows_w[items.clamp(min=0)],
                         torch.zeros((), dtype=dtype, device=device))

@@ -42,7 +42,9 @@ argument with a leading member dimension: w (B, n_nodes, d), x (B, d, n),
 F (B, d*d, n), V0 (B, n), and so on. The kernel takes the whole batch in one
 launch, the members along the launch grid's y axis (at most
 MAX_BATCH); the plain version stacks the members' grids end to end
-(``transfer.particle_stencil``'s member offsets). The tile grid takes no batch.
+(``transfer.particle_stencil``'s member offsets). On a batch's tile grid
+(``grid.sparse``: one tile set per member, every member padded to the same
+slots) each member's blocks read its own row of the (B, n_tiles) lookup.
 
 Dispatch is by device: CPU tensors take ``fused_apply_plain``; CUDA tensors
 launch the kernel or raise. ``launches`` counts kernel launches, one per
@@ -126,14 +128,12 @@ def launch_config(d: int, width: int, itemsize: int):
 def stencil_of(x, dx, res, kernel: str = "quadratic", tgrid=None) -> transfer.Stencil:
     """The stencil the kernels compute from x (d, n), or a batch's
     (B, d, n): the dense grid's, or with compact ids on the tile grid
-    `tgrid` (quadratic only, no batch)."""
+    `tgrid` (quadratic only; a batch's on the batch's tile grid)."""
     if tgrid is None:
         return transfer.particle_stencil(x.transpose(-1, -2), dx, res, kernel=kernel)
-    if x.ndim != 2:
-        raise NotImplementedError("the tile grid takes no batch")
     from hot_tpu_torch.grid import sparse
 
-    return sparse.sparse_stencil(x.T, dx, tgrid)
+    return sparse.sparse_stencil(x.transpose(-1, -2), dx, tgrid)
 
 
 def fused_apply_plain(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
@@ -164,8 +164,8 @@ def batch_of(grid_vec) -> int:
 def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **params):
     """check_inputs specs for a stencil kernel's arguments: the grid vector
     (n_nodes, d) over res (the tile grid's (n_cnodes, d) with `tgrid`), x
-    (d, n), the per-particle SoA arrays and the tile lookup; every shape but
-    the lookup's with the grid vector's leading member dimension in a batch.
+    (d, n), the per-particle SoA arrays and the tile lookup; every shape
+    with the grid vector's leading member dimension in a batch.
     Node offsets inside a member are 32-bit; the kernels offset each
     member's base pointers in 64 bits."""
     d = grid_vec.shape[-1]
@@ -174,8 +174,9 @@ def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **param
     batch_of(grid_vec)
     if d not in (2, 3) or len(res) != d:
         raise ValueError(f"need a 2D or 3D grid, got d={d}, res={tuple(res)}")
-    if tgrid is not None and lead:
-        raise NotImplementedError("the tile grid takes no batch")
+    if tgrid is not None and (tgrid.batch or 1) != batch_of(grid_vec):
+        raise ValueError(f"a tile grid of {tgrid.batch} members for a launch of "
+                         f"{batch_of(grid_vec)}")
     n_nodes = math.prod(int(r) for r in res)
     if tgrid is not None:
         if tuple(tgrid.res) != tuple(res) or kernel_width(kernel) != 3:
@@ -191,7 +192,8 @@ def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **param
     specs = [("grid vector", grid_vec, lead + (n_nodes if tgrid is None else tgrid.n_cnodes, d),
               grid_vec.dtype), ("x", x, lead + (d, n), grid_vec.dtype)]
     if tgrid is not None:
-        specs.append(("tile lookup", tgrid.lookup, (tgrid.n_tiles_logical,), torch.int32))
+        specs.append(("tile lookup", tgrid.lookup, lead + (tgrid.n_tiles_logical,),
+                      torch.int32))
     for name, t in params.items():
         specs.append((name, t, lead + ((rows[name], n) if name in rows else (n,)),
                       grid_vec.dtype))

@@ -27,8 +27,9 @@ the plain version's by paired column signs; everything downstream is
 invariant to that.
 
 A batch passes every argument with a leading member dimension, as in
-``ops.fused_apply``, and gets f (B, n_nodes, d) and the context
-(B, d*d, n) / (B, n_pairs, n) back from one launch.
+``ops.fused_apply`` (on a batch's tile grid too), and gets f
+(B, n_nodes, d) and the context (B, d*d, n) / (B, n_pairs, n) back from one
+launch.
 
 Dispatch is by device: CPU tensors take ``fused_linearize_plain``; CUDA
 tensors launch the kernel or raise. ``launches`` counts kernel launches, one

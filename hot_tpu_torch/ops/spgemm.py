@@ -16,6 +16,10 @@ Either operator may live on a level of the sparse tile grid (compact node
 ids, ``ops.bsr``): coarse couplings that land outside the coarse tile
 grid's active tiles are dropped (subspace Galerkin, as in hot_tpu; the
 restriction drops the same rows).
+
+A batch's block-diagonal operator (``ops.bsr``) gives the batch's coarse
+operator: P is block diagonal too, so member b's coarse rows take only
+member b's fine rows, on member-offset coarse ids.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ def _parity_pattern(h: int, wm: int, w1d: int):
 def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
         max_half: Optional[int] = None, coarse_tgrid=None) -> bsr_mod.BsrMatrix:
     """A_c = P^T A P over the active coarse nodes (compact nodes of
-    `coarse_tgrid` if given).
+    `coarse_tgrid` if given); for a batch's A, coarse_active is (B, n_c).
 
     max_half caps the output stencil half (MultigridConfig.rap_max_half):
     the |offset| > max_half couplings are dropped symmetrically."""
@@ -103,9 +107,15 @@ def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
     Kc = A_c.K
     base_j, w_j = embedding_weights(coords, dtype)
     emb_offs = stencil_offsets(dim, device=device)                 # (3^d, dim)
+    member = A.row_member()
     Jc_node = bsr_mod.coords_to_nodes(coarse_res, coarse_tgrid,
-                                      base_j[:, None, :] + emb_offs[None])   # (R, 3^d)
-    Jc_row = torch.where(Jc_node >= 0, A_c.row_of[Jc_node.clamp(min=0)], -1)
+                                      base_j[:, None, :] + emb_offs[None],
+                                      None if member is None else member[:, None])  # (R, 3^d)
+    ids = A_c.node_ids(None if member is None else member[:, None], Jc_node.clamp(min=0))
+    Jc_row = torch.where(Jc_node >= 0, A_c.row_of[ids], -1)
+    if member is not None:
+        # a padding row's W is zero; it embeds nowhere
+        Jc_row = torch.where((A.node_of < A.row_of.shape[0])[:, None], Jc_row, -1)
 
     offs_c = np.stack(np.meshgrid(*([np.arange(-h_c, h_c + 1)] * dim), indexing="ij"),
                       -1).reshape(-1, dim)

@@ -180,8 +180,16 @@ def grid_boundary_conditions(node_pos, t, colliders: Sequence[Collider], grid_v=
     `boundary_margin` node layers of the domain are stuck as well. For a
     batch, grid_v is (B, n_nodes, d) over the shared node_pos; where a
     collider reads it (separate contact, friction) the outputs get the
-    leading member dimension, elsewhere they broadcast over the members.
+    leading member dimension, elsewhere they broadcast over the members. A
+    batch on the sparse grid has its own node_pos (B, n_nodes, d) per
+    member, and every output its leading member dimension.
     """
+    if node_pos.ndim == 3:
+        B, n, d = node_pos.shape
+        flat_v = None if grid_v is None else grid_v.reshape(B * n, d)
+        proj, v_bc, constrained = grid_boundary_conditions(
+            node_pos.reshape(B * n, d), t, colliders, flat_v, boundary_margin, res, dx)
+        return proj.reshape(B, n, d, d), v_bc.reshape(B, n, d), constrained.reshape(B, n)
     n, d = node_pos.shape
     eye = torch.eye(d, dtype=node_pos.dtype, device=node_pos.device)
     proj = eye.expand(n, d, d)

@@ -20,10 +20,11 @@ per-node array, from the mass to the block-Jacobi blocks, is then
 n_cnodes long); inactive nodes (zero mass) act as the identity so CG leaves
 them alone.
 
-A batch of B members (hot_tpu's ``jax.vmap`` over the step, dense grid
-only) puts a leading member dimension on every per-particle and per-node
-array (x_soa (B, d, n), grid_m (B, n_nodes), ...); each kernel call takes
-the whole batch, and every reduction (``cn_norm``, ``energy``) is per member.
+A batch of B members (hot_tpu's ``jax.vmap`` over the step, on either
+grid; on the tile grid each member's compact nodes are its own) puts a
+leading member dimension on every per-particle and per-node array (x_soa
+(B, d, n), grid_m (B, n_nodes), ...); each kernel call takes the whole
+batch, and every reduction (``cn_norm``, ``energy``) is per member.
 """
 
 from __future__ import annotations

@@ -25,12 +25,15 @@ A batch of members (``sim.state.stack_states``: one scene at B stiffnesses,
 say) steps together, as hot_tpu's ``jax.vmap(advance_one_step, in_axes=(0,
 None, None))`` does: every per-particle and per-node array carries a leading
 member dimension, dt, t, cfg, model, colliders and plasticity are shared,
-each member runs its own Newton and CG iterations (``solver.newton``), and
-each particle kernel runs once per batch. The batch takes the dense grid,
-quadratic or cubic transfers, block-Jacobi, Jacobi or no preconditioner
-under the matrix-free Hessian, line search, the explicit integrator, every
-model and return map; it refuses multigrid, the sparse grid, L-BFGS, MINRES
-and the explicit BSR (NotImplementedError).
+each member runs its own Newton and CG or MINRES iterations
+(``solver.newton``) or its own L-BFGS (``solver.lbfgs``), and each particle
+kernel runs once per batch. The batch takes every configuration one state
+takes: both grids (on the sparse grid each member has its own tile set,
+``grid.sparse``), both transfer kernels, every preconditioner including
+HOT's multigrid in all its forms (a hierarchy per member inside one set of
+batched arrays, ``solver.multigrid``), the explicit BSR Hessian (one
+block-diagonal operator, ``ops.bsr``, so each SpMV is one launch), line
+search, the explicit integrator, every model and return map.
 
 The step is eager PyTorch; dt is a Python float. As in hot_tpu, cubic
 transfers refuse every operator assembled into the 5-wide quadratic BSR:
@@ -88,19 +91,9 @@ NONLINEAR = ("newton", "lbfgs")
 DRUCKER_PRAGER_FRICTION_DEG = 30.0
 
 
-def _check_supported(cfg: SimConfig, plasticity, batched: bool = False):
+def _check_supported(cfg: SimConfig, plasticity):
     sol = cfg.solver
     mgc = sol.multigrid
-    if batched:
-        for bad, what in (
-                (sol.preconditioner == "multigrid",
-                 "the multigrid preconditioner (its compressed rows differ per member)"),
-                (cfg.grid_backend == "sparse", "the sparse grid (its tile sets differ per member)"),
-                (sol.nonlinear == "lbfgs", "L-BFGS"),
-                (sol.linear_solver == "minres", "MINRES"),
-                (not sol.matrix_free, "the explicit BSR Hessian (matrix_free=False)")):
-            if bad:
-                raise NotImplementedError(f"a batch of states does not take {what} yet")
     unsupported = [
         (tuple(cfg.mesh.shape) != (1,), f"a device mesh of shape {tuple(cfg.mesh.shape)}"),
         (sol.overlap_halo, "solver.overlap_halo (the sharded step's halo overlap)"),
@@ -184,8 +177,9 @@ def _lbfgs_update(model, obj: obj_mod.ObjectiveContext, sol, v0) -> NewtonResult
         cn_norm=lambda r: obj_mod.cn_norm(obj, r),
         v0=v0, history=sol.lbfgs_history, max_iters=sol.max_cg,
         cn_eps=sol.cn_eps if sol.use_cn else 0.0)
+    history = [[] for _ in res.iters] if isinstance(res.iters, list) else []
     return NewtonResult(v=res.v, iters=res.iters, cg_iters=res.iters, cn_residual=res.grad_norm,
-                        cn_residual0=res.grad_norm, converged=res.converged, cn_history=[],
+                        cn_residual0=res.grad_norm, converged=res.converged, cn_history=history,
                         ls_backtracks=res.backtracks)
 
 
@@ -196,7 +190,7 @@ def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
     sol = cfg.solver
     dim, res, dx, dt = cfg.dim, objective.res, objective.dx, objective.dt
     st, grid_m, active = objective.stencil, objective.grid_m, objective.active
-    n_nodes, dtype = grid_m.shape[0], state.x.dtype
+    n_nodes, dtype = grid_m.shape[-1], state.x.dtype
 
     def lin_particles(v):
         return obj_mod.linearize(model, objective, v, project_spd=sol.project_hessian)
@@ -220,7 +214,7 @@ def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
             mat = hp[1]
             y = bsr.rows_to_grid_vector(mat, bsr.spmv(mat, bsr.grid_vector_to_rows(mat, w)),
                                         n_nodes)
-            return torch.where(active[:, None], y, w)
+            return torch.where(active[..., None], y, w)
 
     refresh_precond = None
     if sol.preconditioner == "none":
@@ -294,7 +288,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     batched = state.batch is not None
-    _check_supported(cfg, plasticity, batched)
+    _check_supported(cfg, plasticity)
     dim = cfg.dim
     res = tuple(cfg.grid_res[:dim])
     dx = cfg.dx
@@ -317,7 +311,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     inv_m = torch.where(active, 1.0 / torch.clamp(grid_m, min=1e-30), torch.zeros_like(grid_m))
     v_grid = grid_mv * inv_m[..., None]
 
-    # ---- grid BC (node positions shared by a batch's members)
+    # ---- grid BC (node positions shared by a batch's members on the dense grid)
     gravity = torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device)
     v_star = v_grid + dt * gravity
     proj, v_bc, constrained = collision.grid_boundary_conditions(
@@ -376,7 +370,8 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
         active_tiles=0 if tgrid is None else tgrid.n_active,
     )
     if batched:
-        stats = stats._replace(active_tiles=[0] * state.batch)
+        stats = stats._replace(active_tiles=[0] * state.batch if tgrid is None
+                               else tgrid.member_tiles)
     return new_state, stats
 
 
@@ -398,7 +393,7 @@ class Simulation:
                  colliders: Sequence[collision.Collider] = (),
                  plasticity: Optional[str] = None,
                  metrics: Optional[MetricsLogger] = None):
-        _check_supported(cfg, plasticity, state.batch is not None)
+        _check_supported(cfg, plasticity)
         self.cfg = cfg
         self.state = state
         self.model = model

@@ -12,7 +12,7 @@ iteration.
 projector applied to residuals and directions; the operator acts as the
 identity on the projected-out subspace.
 
-CG also solves a batch of B independent systems at once, vectors with a
+Both also solve a batch of B independent systems at once, vectors with a
 leading member dimension (what ``jax.vmap`` makes of hot_tpu's loop): every
 dot product is per member, each member takes its own alpha and beta and
 stops on its own threshold, and a member that has stopped is frozen (its
@@ -129,7 +129,7 @@ def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable]
 
 def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,
                  project: Optional[Callable] = None, tol=1e-3, abs_tol: float = 0.0,
-                 max_iters: int = 200) -> CGResult:
+                 max_iters: int = 200, active=None) -> CGResult:
     """Preconditioned conjugate residual (MINRES-equivalent for symmetric A,
     so it takes a mildly indefinite operator, e.g. the Hessian without SPD
     projection), `precondition` SPD:
@@ -139,35 +139,48 @@ def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Calla
 
     hot_tpu's minres_solve divides by Ap . Ap, which is this only for M = I
     and diverges under any other preconditioner; with M = I the two take
-    the same iterates. Stops as cg_solve does. Each iteration applies the
-    operator once and the preconditioner twice."""
+    the same iterates. Stops as cg_solve does, and takes a batch as
+    cg_solve does (per-member alpha, beta and counters, a stopped member
+    frozen by select). Each iteration applies the operator once and the
+    preconditioner twice."""
     precondition = precondition or _identity
     project = project or _identity
+    batched = active is not None
     x = torch.zeros_like(b) if x0 is None else x0
     r = project(b - multiply(x))
     z = project(precondition(r))
     Az = project(multiply(z))
     p, Ap = z, Az
-    zAz = _dot(z, Az)
-    rnorm0 = torch.sqrt(_dot(r, r))
+    zAz = dot(z, Az, batched)
+    rnorm0 = torch.sqrt(dot(r, r, batched))
     threshold = torch.clamp(tol * rnorm0, min=abs_tol)
     rnorm = rnorm0
+    going = rnorm > threshold
+    if batched:
+        going = going & active
+    iters = [0] * going.shape[0] if going.ndim else 0
     k = 0
-    while k < max_iters and bool(rnorm > threshold):
-        ApMAp = _dot(Ap, project(precondition(Ap)))
-        alpha = torch.where(ApMAp.abs() > 0,
-                            zAz / torch.where(ApMAp == 0, torch.ones_like(ApMAp), ApMAp),
-                            torch.zeros_like(ApMAp))
-        x = x + alpha * p
-        r = r - alpha * Ap
+    while k < max_iters:
+        flags = going.tolist()
+        if not any_going(flags):
+            break
+        ApMAp = dot(Ap, project(precondition(Ap)), batched)
+        alpha = per_member(torch.where(
+            ApMAp.abs() > 0, zAz / torch.where(ApMAp == 0, torch.ones_like(ApMAp), ApMAp),
+            torch.zeros_like(ApMAp)), p)
+        x = keep(going, x + alpha * p, x)
+        r = keep(going, r - alpha * Ap, r)
         z = project(precondition(r))
         Az = project(multiply(z))
-        zAz_new = _dot(z, Az)
-        beta = zAz_new / torch.where(zAz == 0, torch.ones_like(zAz), zAz)
-        p = z + beta * p
-        Ap = Az + beta * Ap
-        zAz = zAz_new
+        zAz_new = dot(z, Az, batched)
+        beta = per_member(zAz_new / torch.where(zAz == 0, torch.ones_like(zAz), zAz), p)
+        p = keep(going, z + beta * p, p)
+        Ap = keep(going, Az + beta * Ap, Ap)
+        zAz = keep(going, zAz_new, zAz)
         k += 1
-        rnorm = torch.sqrt(_dot(r, r))
-    return CGResult(x=x, iters=k, residual=rnorm, residual0=rnorm0,
-                    converged=bool(rnorm <= threshold))
+        iters = count(iters, flags)
+        rnorm = keep(going, torch.sqrt(dot(r, r, batched)), rnorm)
+        going = going & (rnorm > threshold)
+    converged = rnorm <= threshold
+    return CGResult(x=x, iters=iters, residual=rnorm, residual0=rnorm0,
+                    converged=converged if converged.ndim else bool(converged))

@@ -47,6 +47,18 @@ level and on a dense composed level (the composed stencil reaches nodes the
 level's own particle stencils leave inactive). hot_tpu's tile-row layout,
 its capacities and the phased build were for the TPU's static shapes and
 are not ported.
+
+A batch of B members (hot_tpu's ``jax.vmap`` over the step: x (B, n, d),
+level vectors (B, n_nodes_l, d)) builds one hierarchy whose every array
+has a leading member dimension: each member's levels have their own
+active nodes, constrained set (the 25% rule over the member's own fine
+nodes), tile grids (``grid.sparse``'s batch) and assembled operators
+(``ops.bsr``'s block-diagonal batch, RAP and the composed level on it, so
+each SpMV is one launch for all members). Everything that reduces is per
+member, as under ``vmap``: the power iteration's lambda_max and so every
+Chebyshev coefficient, the fp32 diagonal floor, the coarse Cholesky factor
+(one per member, batched over blocks padded with the identity) and the
+coarse CG, which freezes a converged member (``solver.cg``).
 """
 
 from __future__ import annotations
@@ -63,7 +75,7 @@ from hot_tpu_torch.ops import spgemm
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.fused_apply import soa
 from hot_tpu_torch.sim import objective as obj_mod
-from hot_tpu_torch.solver.cg import cg_solve
+from hot_tpu_torch.solver.cg import cg_solve, dot, per_member
 from hot_tpu_torch.utils.config import MultigridConfig
 
 
@@ -105,7 +117,7 @@ class MGStatic(NamedTuple):
 
 class MGPrecond(NamedTuple):
     diag_inv: Tuple[torch.Tensor, ...]  # per level (n_l, d, d), row order when assembled
-    lmax: Tuple[torch.Tensor, ...]      # per level: scalar spectral bound
+    lmax: Tuple[torch.Tensor, ...]      # per level: spectral bound (a batch's: per member)
     hess: obj_mod.HessianState          # per-particle dPdF context, shared by levels
     F_soa: torch.Tensor                 # (d*d, n) step-start F, SoA
     V0: torch.Tensor
@@ -134,7 +146,8 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
     with tile_capacity the coarse compact levels' limit and dense_switch
     (None = 2 tile_capacity 4^dim) the dense node count at or below which a
     level is dense. composed: with assembled_from > 0, make that level the
-    composed Galerkin operator (coarsening="galerkin")."""
+    composed Galerkin operator (coarsening="galerkin"). A batch's x and m
+    (and tile grid) give the batch's hierarchy (see the module doc)."""
     if kernel != "quadratic" and assembled_from is not None:
         raise NotImplementedError(
             "assembled MG levels use the 5-wide quadratic BSR; run the matrix-free MG "
@@ -145,7 +158,8 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
         dense_switch = 2 * tile_capacity * 4 ** dim
     levels, embeds = [], []
     cur_res, cur_dx, cons = tuple(res), dx, constrained
-    x_soa = soa(x)
+    batch = x.shape[0] if x.ndim == 3 else None
+    x_soa = soa(x, x.ndim - 2)
     tg = tgrid
     for l in range(n_levels):
         if tg is not None:
@@ -154,7 +168,7 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
         else:
             st = transfer.particle_stencil(x, cur_dx, cur_res, kernel=kernel)
             n_nodes = transfer.n_nodes_of(cur_res)
-        grid_m = transfer.scatter_sum(st.node_ids, st.wn * m[:, None], n_nodes)
+        grid_m = transfer.scatter_sum(st.node_ids, st.wn * m[..., None], n_nodes)
         active = grid_m > 0
         assembled = assembled_from is not None and l >= assembled_from
         comp = None
@@ -168,7 +182,7 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
                     # hot_tpu's rows: every node of the level's active tiles
                     rows = _tile_rows(x, cur_dx, cur_res)
             if tg is not None:
-                rows = torch.arange(n_nodes, device=device) < tg.dump
+                rows = sparse.slot_nodes(tg)
             mat_sym = bsr_mod.structure(rows, cur_res, half=half, dtype=dtype, tgrid=tg)
         levels.append(MGLevel(
             stencil=st, grid_m=grid_m, active=active, free=active & ~cons,
@@ -188,17 +202,21 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
             embed = sparse.sparse_stencil(node_pos, nxt_dx, tg)
         else:
             embed = transfer.particle_stencil(node_pos, nxt_dx, nxt_res)
-        wn = embed.wn
+        n_coarse = tg.n_cnodes if tg is not None else transfer.n_nodes_of(nxt_res)
+        node_ids, wn = embed.node_ids, embed.wn
+        if batch is not None and node_pos.ndim == 2:
+            # dense to dense: the members share the embedding, each on its own nodes
+            node_ids = node_ids + transfer.member_offsets(batch, n_coarse, device)
+            wn = wn.expand(batch, -1, -1)
         if fine_compact:
             # the dump row sits far outside the grid: no weight from it or
             # from any other inactive fine node
-            wn = torch.where(active[:, None], wn, torch.zeros((), dtype=wn.dtype, device=device))
-        embed = transfer.Stencil(node_ids=embed.node_ids, wn=wn, gwn=None, rel=None)
+            wn = torch.where(active[..., None], wn, torch.zeros((), dtype=wn.dtype, device=device))
+        embed = transfer.Stencil(node_ids=node_ids, wn=wn, gwn=None, rel=None)
         # restriction and prolongation read only node_ids and wn
         embeds.append(embed)
-        n_coarse = tg.n_cnodes if tg is not None else transfer.n_nodes_of(nxt_res)
         w_total = transfer.scatter_sum(embed.node_ids, embed.wn, n_coarse)
-        w_cons = transfer.scatter_sum(embed.node_ids, embed.wn * cons[:, None].to(dtype),
+        w_cons = transfer.scatter_sum(embed.node_ids, embed.wn * cons[..., None].to(dtype),
                                       n_coarse)
         cons = w_cons > 0.25 * torch.clamp(w_total, min=1e-30)
         cur_res, cur_dx = nxt_res, nxt_dx
@@ -206,32 +224,37 @@ def build_static(x, m, res, dx: float, n_levels: int, constrained, dtype,
 
 
 def _tile_rows(x, dx: float, res):
-    """(n_nodes,) bool: the dense nodes inside the tiles that the particles'
-    stencils at spacing dx activate."""
+    """(n_nodes,) bool, a batch's (B, n_nodes): the dense nodes inside the
+    tiles that the particles' stencils at spacing dx activate."""
     tg = sparse.build_tile_grid(x, dx, res, capacity=transfer.n_nodes_of(res))
-    ones = torch.ones((tg.n_cnodes,), dtype=torch.bool, device=x.device)
-    return sparse.compact_to_dense(tg, ones, fill=False)
+    return sparse.compact_to_dense(tg, sparse.slot_nodes(tg), fill=False)
 
 
 def _composed_level(x, dx: float, L: int, fine: MGLevel) -> ComposedLevel:
     """The composed Galerkin data of level L: the particles' composed
     weights and the fine level's node coords and masses (its compact nodes
-    on the tile grid, the dump row left out)."""
-    base, w, dw = comp_mod.composed_particle_weights(x, dx, L)
-    n_f = fine.grid_m.shape[0] if fine.tgrid is None else fine.tgrid.dump
-    coords = bsr_mod.node_coords(fine.res, fine.tgrid, torch.arange(n_f, device=x.device))
-    return ComposedLevel(base=base, w=w, dw=dw, node_coords=coords, node_m=fine.grid_m[:n_f])
+    on the tile grid, the dump row left out); a batch's with a leading
+    member dimension."""
+    base, w, dw = (t.reshape(x.shape[:-1] + t.shape[1:])
+                   for t in comp_mod.composed_particle_weights(x.reshape(-1, x.shape[-1]), dx, L))
+    n_f = fine.grid_m.shape[-1] if fine.tgrid is None else fine.tgrid.dump
+    ids = torch.arange(n_f, device=x.device).expand(fine.grid_m.shape[:-1] + (n_f,))
+    coords = bsr_mod.node_coords(fine.res, fine.tgrid, ids)
+    return ComposedLevel(base=base, w=w, dw=dw, node_coords=coords,
+                         node_m=fine.grid_m[..., :n_f])
 
 
 def level_node_coords(level: MGLevel):
     """(n_nodes_l, dim) integer coords of the level's vector entries (the
-    dump row of a compact level at the origin)."""
-    n = level.grid_m.shape[0]
+    dump row of a compact level at the origin); a batch's compact level's
+    (B, n_nodes_l, dim)."""
+    n = level.grid_m.shape[-1]
     ids = torch.arange(n, device=level.grid_m.device)
     if level.tgrid is None:
         return transfer.unravel(ids, level.res)
+    ids = ids.expand(level.grid_m.shape[:-1] + (n,))
     coords = bsr_mod.node_coords(level.res, level.tgrid, ids.clamp(max=level.tgrid.dump - 1))
-    return torch.where((ids < level.tgrid.dump)[:, None], coords, torch.zeros_like(coords))
+    return torch.where((ids < level.tgrid.dump)[..., None], coords, torch.zeros_like(coords))
 
 
 # ---------------------------------------------------------------------------
@@ -247,16 +270,17 @@ def level_multiply(level: MGLevel, pre: MGPrecond, dt: float, w):
 
 
 def level_project(level: MGLevel, r):
-    return torch.where(level.free[:, None], r, torch.zeros_like(r))
+    return torch.where(level.free[..., None], r, torch.zeros_like(r))
 
 
 def _free_rows_of(level: MGLevel, mat):
-    """Free mask in the row order of `mat`."""
-    return level.free[mat.node_of]
+    """Free mask in the row order of `mat` (a batch's (B, R), False on its
+    padding rows)."""
+    return bsr_mod.grid_vector_to_rows(mat, level.free)
 
 
 def _from_rows(level: MGLevel, mat, y):
-    return bsr_mod.rows_to_grid_vector(mat, y, level.grid_m.shape[0])
+    return bsr_mod.rows_to_grid_vector(mat, y, level.grid_m.shape[-1])
 
 
 def level_multiply_any(level: MGLevel, mat, pre: MGPrecond, dt: float, w):
@@ -265,25 +289,26 @@ def level_multiply_any(level: MGLevel, mat, pre: MGPrecond, dt: float, w):
     if mat is None:
         return level_multiply(level, pre, dt, w)
     y = _from_rows(level, mat, bsr_mod.spmv(mat, bsr_mod.grid_vector_to_rows(mat, w)))
-    return torch.where(level.active[:, None], y, w)
+    return torch.where(level.active[..., None], y, w)
 
 
 def _level_ops_rows(level: MGLevel, mat):
     """(mul, proj) on row vectors of an explicit-operator level."""
-    free_rows = _free_rows_of(level, mat)[:, None]
+    free_rows = _free_rows_of(level, mat)[..., None]
     return (lambda w: bsr_mod.spmv(mat, w),
             lambda r: torch.where(free_rows, r, torch.zeros_like(r)))
 
 
 def _floor_fp32_diag(D):
     """fp32 smoother-stability floor: raise each diagonal entry to 1e-10 x
-    the level's largest. Fringe active nodes (stencil-tail masses ~1e-20)
-    otherwise give Dinv rows ~1e14, which Chebyshev compounds to fp32
-    overflow. fp64 keeps its range and is left alone."""
+    the level's largest (a batch's member's own). Fringe active nodes
+    (stencil-tail masses ~1e-20) otherwise give Dinv rows ~1e14, which
+    Chebyshev compounds to fp32 overflow. fp64 keeps its range and is left
+    alone."""
     if D.dtype != torch.float32:
         return D
     diag = torch.diagonal(D, dim1=-2, dim2=-1)
-    floor = 1e-10 * diag.max()
+    floor = diag.amax(dim=(-2, -1), keepdim=True) * 1e-10 if D.ndim == 4 else 1e-10 * diag.max()
     return D + torch.diag_embed(torch.clamp(floor - diag, min=0.0))
 
 
@@ -294,21 +319,21 @@ def _level_smoother_data(level: MGLevel, mat, pre: MGPrecond, ctx, F_n, dt: floa
     eye = torch.eye(dim, dtype=F_n.dtype, device=F_n.device)
     if mat is not None:
         free_rows = _free_rows_of(level, mat)
-        D = torch.where(free_rows[:, None, None], bsr_mod.block_diag(mat), eye)
+        D = torch.where(free_rows[..., None, None], bsr_mod.block_diag(mat), eye)
         mul, proj = _level_ops_rows(level, mat)
-        v0 = free_rows[:, None].to(F_n.dtype).expand(-1, dim)
+        v0 = free_rows[..., None].to(F_n.dtype).expand(free_rows.shape + (dim,))
     else:
         D = obj_mod.elastic_block_diag(level.stencil, F_n, ctx, pre.V0, dt, level.grid_m,
                                        level.active, dim)
         D = _floor_fp32_diag(D)
         mul = lambda w: level_multiply(level, pre, dt, w)  # noqa: E731
         proj = lambda r: level_project(level, r)  # noqa: E731
-        v0 = level.free[:, None].to(F_n.dtype).expand(-1, dim)
+        v0 = level.free[..., None].to(F_n.dtype).expand(level.free.shape + (dim,))
     Dinv = obj_mod.sym_block_inv(D)
     if need_lmax:
         lam = _power_iteration_lmax(mul, proj, Dinv, v0, cfg.power_iters)
     else:
-        lam = torch.ones((), dtype=F_n.dtype, device=F_n.device)
+        lam = torch.ones(F_n.shape[:-3], dtype=F_n.dtype, device=F_n.device)
     return Dinv, lam
 
 
@@ -324,7 +349,7 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
     are taken as they are; the first assembled level and the smoother data
     of the levels above are rebuilt."""
     ctx = hess.context(dim)
-    pre = MGPrecond(diag_inv=(), lmax=(), hess=hess, F_soa=soa(F_n), V0=V0)
+    pre = MGPrecond(diag_inv=(), lmax=(), hess=hess, F_soa=soa(F_n, F_n.ndim - 3), V0=V0)
     n_levels = len(mg.levels)
     first_asm = next((l for l, lv in enumerate(mg.levels) if lv.mat_sym is not None), None)
     galerkin = cfg.coarsening == "galerkin" and first_asm is not None
@@ -344,7 +369,7 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
         mat = None
         if level.mat_sym is not None:
             if galerkin and prev_mat is not None:
-                mat = spgemm.rap(prev_mat, level.res, level.mat_sym.row_of >= 0,
+                mat = spgemm.rap(prev_mat, level.res, level.mat_sym.row_nodes(),
                                  max_half=cfg.rap_max_half, coarse_tgrid=level.tgrid)
             elif galerkin and level.comp is not None:
                 c = level.comp
@@ -385,45 +410,57 @@ def _coarse_dense_factor(level: MGLevel, F_n, ctx, V0, dt: float, dim: int):
 
 def _dense_factor_from_mat(mat: bsr_mod.BsrMatrix, free_rows, dim: int):
     """Lower Cholesky factor of a BC-projected explicit BSR operator: the
-    identity on non-free DoFs and a 1e-8 relative Tikhonov guard."""
-    n = mat.n_rows
+    identity on non-free DoFs and a 1e-8 relative Tikhonov guard. A batch's
+    operator gives (B, R d, R d), each member's own factor of its own block
+    (the identity on its padding rows, whose free mask is False)."""
+    B, n = mat.batch or 1, mat.member_rows
+    free = free_rows.reshape(-1)
     cols = mat.col_row.long().clamp(min=0)
-    ok = (mat.col_row >= 0) & free_rows[:, None] & free_rows[cols]
+    ok = (mat.col_row >= 0) & free[:, None] & free[cols]
     r, k = torch.nonzero(ok, as_tuple=True)
-    A = torch.zeros((n, dim, n, dim), dtype=mat.vals.dtype, device=mat.vals.device)
+    A = torch.zeros((B, n, dim, n, dim), dtype=mat.vals.dtype, device=mat.vals.device)
     # the columns of one row are distinct nodes, so (row, col) pairs are unique
-    A[r, :, cols[r, k], :] = mat.vals[r, k]
-    A = A.reshape(n * dim, n * dim)
-    A = A + torch.diag((~free_rows).repeat_interleave(dim).to(A.dtype))
-    eps = 1e-8 * torch.clamp(torch.diagonal(A).max(), min=1.0)
-    A = A + eps * torch.eye(n * dim, dtype=A.dtype, device=A.device)
-    return torch.linalg.cholesky(A)
+    A[torch.div(r, n, rounding_mode="floor"), r % n, :, cols[r, k] % n, :] = mat.vals[r, k]
+    A = A.reshape(B, n * dim, n * dim)
+    A = A + torch.diag_embed((~free).reshape(B, n).repeat_interleave(dim, dim=1).to(A.dtype))
+    eps = 1e-8 * torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1).amax(-1), min=1.0)
+    A = A + eps[:, None, None] * torch.eye(n * dim, dtype=A.dtype, device=A.device)
+    L = torch.linalg.cholesky(A)
+    return L if mat.batch is not None else L[0]
 
 
 def _coarse_dense_solve(chol_and_mat, b, n_nodes: int):
     L, mat = chol_and_mat
-    d = b.shape[1]
-    x = torch.cholesky_solve(bsr_mod.grid_vector_to_rows(mat, b).reshape(-1, 1), L)
-    return bsr_mod.rows_to_grid_vector(mat, x.reshape(-1, d), n_nodes)
+    rows = bsr_mod.grid_vector_to_rows(mat, b)
+    x = torch.cholesky_solve(rows.reshape(rows.shape[:-2] + (-1, 1)), L)
+    return bsr_mod.rows_to_grid_vector(mat, x.reshape(rows.shape), n_nodes)
 
 
 def _bapply(B, v):
-    """Block-diagonal application: (n, d, d) blocks on (n, d) vectors."""
-    return (B * v[:, None, :]).sum(-1)
+    """Block-diagonal application: (n, d, d) blocks on (n, d) vectors (a
+    batch's (B, n, ...))."""
+    return (B * v[..., None, :]).sum(-1)
 
 
 def _norm(v):
-    return torch.sqrt(torch.sum(v * v))
+    """|v|_2: a scalar, per member (B,) for a batch's (B, n, d)."""
+    return torch.sqrt(dot(v, v, v.ndim == 3))
+
+
+def _scaled(v, s):
+    """v / s with s a scalar or per member."""
+    return v / per_member(s, v)
 
 
 def _power_iteration_lmax(mul, proj, Dinv, v, iters: int):
-    """lambda_max(D^-1 A) on the free subspace by power iteration."""
-    v = v / torch.clamp(_norm(v), min=1e-30)
-    lam = torch.ones((), dtype=v.dtype, device=v.device)
+    """lambda_max(D^-1 A) on the free subspace by power iteration (per
+    member for a batch)."""
+    v = _scaled(v, torch.clamp(_norm(v), min=1e-30))
+    lam = torch.ones(v.shape[:-2], dtype=v.dtype, device=v.device)
     for _ in range(iters):
         Av = proj(_bapply(Dinv, mul(proj(v))))
         lam = _norm(Av) / torch.clamp(_norm(v), min=1e-30)
-        v = Av / torch.clamp(_norm(Av), min=1e-30)
+        v = _scaled(Av, torch.clamp(_norm(Av), min=1e-30))
     return torch.clamp(lam, min=1e-12)
 
 
@@ -440,18 +477,19 @@ def jacobi_smooth(mul, proj, Dinv, b, x, iters: int, omega: float):
 
 def chebyshev_smooth(mul, proj, Dinv, lmax, b, x, order: int, lo: float, hi: float):
     """Chebyshev polynomial smoother on D^-1 A over [lo lmax, hi lmax];
-    `order` operator applications."""
+    `order` operator applications. A batch's lmax (B,) gives each member
+    its own coefficients."""
     lmin, lmx = lo * lmax, hi * lmax
     theta = 0.5 * (lmx + lmin)
     delta = 0.5 * (lmx - lmin)
     sigma1 = theta / delta
-    d = proj(_bapply(Dinv, proj(b - mul(x)))) / theta
+    d = _scaled(proj(_bapply(Dinv, proj(b - mul(x)))), theta)
     x = x + d
     rho_prev = 1.0 / sigma1
     for _ in range(order - 1):
         z = proj(_bapply(Dinv, proj(b - mul(x))))
         rho = 1.0 / (2.0 * sigma1 - rho_prev)
-        d = rho * rho_prev * d + (2.0 * rho / delta) * z
+        d = per_member(rho * rho_prev, d) * d + per_member(2.0 * rho / delta, z) * z
         x = x + d
         rho_prev = rho
     return x
@@ -462,7 +500,7 @@ def colored_gs_smooth(mul, proj, Dinv, color, n_colors: int, b, x, iters: int):
     so the V-cycle stays symmetric); nodes colored by coordinate parity.
     One iteration costs 2 n_colors operator applications."""
     order = list(range(n_colors)) + list(range(n_colors - 1, -1, -1))
-    masks = [(color == c).to(x.dtype)[:, None] for c in range(n_colors)]
+    masks = [(color == c).to(x.dtype)[..., None] for c in range(n_colors)]
     for _ in range(iters):
         for c in order:
             x = x + masks[c] * _bapply(Dinv, proj(b - mul(x)))
@@ -470,11 +508,11 @@ def colored_gs_smooth(mul, proj, Dinv, color, n_colors: int, b, x, iters: int):
 
 
 def _parity_colors(coords):
-    """(n,) parity color of each vector entry from its node coords (n, dim):
+    """(...,) parity color of each vector entry from its node coords (..., dim):
     sum over axes of (coord_k & 1) << k."""
-    color = torch.zeros(coords.shape[:1], dtype=torch.long, device=coords.device)
-    for k in range(coords.shape[1]):
-        color = color | ((coords[:, k] & 1) << k)
+    color = torch.zeros(coords.shape[:-1], dtype=torch.long, device=coords.device)
+    for k in range(coords.shape[-1]):
+        color = color | ((coords[..., k] & 1) << k)
     return color
 
 
@@ -504,8 +542,8 @@ def _smooth(level: MGLevel, pre: MGPrecond, l: int, dt: float, cfg: MultigridCon
                            lambda r: level_project(level, r), pre, l, cfg, b, x, iters,
                            color=color, n_colors=n_colors)
     mul, proj = _level_ops_rows(level, mat)
-    color = (_parity_colors(bsr_mod.row_coords(mat))
-             if cfg.smoother == "colored_gs" else None)
+    color = (_parity_colors(bsr_mod.grid_vector_to_rows(mat, level_node_coords(level).expand(
+        level.grid_m.shape + (len(level.res),)))) if cfg.smoother == "colored_gs" else None)
     x_r = _smooth_ops(mul, proj, pre, l, cfg, bsr_mod.grid_vector_to_rows(mat, b),
                       bsr_mod.grid_vector_to_rows(mat, x), iters, color=color, n_colors=n_colors)
     return _from_rows(level, mat, x_r)
@@ -517,14 +555,15 @@ def _smooth(level: MGLevel, pre: MGPrecond, l: int, dt: float, cfg: MultigridCon
 
 
 def restrict(embed: transfer.Stencil, r_fine, n_nodes_coarse: int):
-    """R = P^T: scatter the fine residual into the coarse nodes."""
-    return transfer.scatter_sum(embed.node_ids, embed.wn[:, :, None] * r_fine[:, None, :],
+    """R = P^T: scatter the fine residual into the coarse nodes (a batch's
+    (B, n_f, d) onto (B, n_c, d) through the member-offset embedding)."""
+    return transfer.scatter_sum(embed.node_ids, embed.wn[..., None] * r_fine[..., None, :],
                                 n_nodes_coarse)
 
 
 def prolong(embed: transfer.Stencil, e_coarse):
     """P: interpolate the coarse correction at the fine nodes."""
-    return torch.sum(embed.wn[:, :, None] * e_coarse[embed.node_ids], dim=1)
+    return torch.sum(embed.wn[..., None] * transfer.gather(e_coarse, embed.node_ids), dim=-2)
 
 
 def v_cycle(mg: MGStatic, pre: MGPrecond, dt: float, cfg: MultigridConfig, b, l: int = 0):
@@ -534,20 +573,23 @@ def v_cycle(mg: MGStatic, pre: MGPrecond, dt: float, cfg: MultigridConfig, b, l:
     if l == len(mg.levels) - 1:
         if cfg.coarse_solver == "direct":
             return level_project(level, _coarse_dense_solve(pre.coarse_chol, b,
-                                                            level.grid_m.shape[0]))
+                                                            level.grid_m.shape[-1]))
         if cfg.coarse_solver == "cg":
             Dinv = pre.diag_inv[l]
             cmat = pre.mats[l]
+            # a batch's members solve at once, each frozen once it converges
+            batch = {} if b.ndim == 2 else {
+                "active": torch.ones(b.shape[:1], dtype=torch.bool, device=b.device)}
             if cmat is None:
                 res = cg_solve(lambda w: level_project(level, level_multiply(level, pre, dt, w)),
                                b, precondition=lambda r: _bapply(Dinv, r),
                                project=lambda r: level_project(level, r), tol=1e-2,
-                               max_iters=cfg.coarse_iters)
+                               max_iters=cfg.coarse_iters, **batch)
                 return res.x
             mul, proj = _level_ops_rows(level, cmat)
             res = cg_solve(lambda w: proj(mul(w)), bsr_mod.grid_vector_to_rows(cmat, b),
                            precondition=lambda r: _bapply(Dinv, r), project=proj, tol=1e-2,
-                           max_iters=cfg.coarse_iters)
+                           max_iters=cfg.coarse_iters, **batch)
             return _from_rows(level, cmat, res.x)
         if cfg.coarse_solver == "smoother":
             return _smooth(level, pre, l, dt, cfg, b, x, cfg.coarse_iters)
@@ -555,7 +597,7 @@ def v_cycle(mg: MGStatic, pre: MGPrecond, dt: float, cfg: MultigridConfig, b, l:
     x = _smooth(level, pre, l, dt, cfg, b, x, cfg.pre_smooth)
     r = level_project(level, b - level_multiply_any(level, pre.mats[l], pre, dt, x))
     coarse = mg.levels[l + 1]
-    r_c = level_project(coarse, restrict(mg.embeds[l], r, coarse.grid_m.shape[0]))
+    r_c = level_project(coarse, restrict(mg.embeds[l], r, coarse.grid_m.shape[-1]))
     e_c = v_cycle(mg, pre, dt, cfg, r_c, l + 1)
     x = x + level_project(level, prolong(mg.embeds[l], e_c))
     return _smooth(level, pre, l, dt, cfg, b, x, cfg.post_smooth)

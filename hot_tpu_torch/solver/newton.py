@@ -15,7 +15,7 @@ A batch of B independent problems (v (B, ...); cn_norm and energy return
 norm, forcing eta, CG and line search and its own counters, as if alone; a
 member that has stopped is frozen (v, r and its CN norm kept by select) and
 the loop runs while any member is active, reading back one (B,) activity mask
-per iteration (and per line-search trial). Only CG takes a batch.
+per iteration (and per line-search trial). CG and MINRES both take a batch.
 """
 
 from __future__ import annotations
@@ -80,8 +80,6 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     cn0 = cn_norm(r)
     cn = cn0
     batch = cn0.shape[0] if cn0.ndim else None
-    if batch is not None and linear_solver != "cg":
-        raise NotImplementedError(f"a batch takes linear_solver 'cg', not '{linear_solver}'")
     partial = refresh_preconditioner is not None and precond_refresh == "newton"
     frozen = build_preconditioner(hess) if precond_refresh == "step" or partial else None
     history = [cn0]

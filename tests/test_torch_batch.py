@@ -13,7 +13,9 @@ versions).
     block drop: the batch against each member stepped alone, exact counts,
     x and F within 1e-12.
   * both kernels' plain versions on a batch against one call per member.
-  * the configurations a batch refuses.
+  * each configuration a batch once refused (multigrid, sparse,
+    L-BFGS, MINRES, explicit BSR) stepping a batch; the device mesh it
+    still refuses.
 """
 
 import functools
@@ -88,10 +90,10 @@ def test_block_drop_sweep_matches_hot_tpu_vmap():
     assert np.abs(x[0] - x[-1]).max() > 1e-3
 
 
-def _batch_against_singles(scene, members, steps, dt, cfg=None, plasticity=None):
+def _batch_against_singles(scene, members, steps, dt, cfg=None, plasticity=None, f_tol=1e-12):
     """Step `members` (single states) as one batch and each alone: equal
     Newton, CG and line-search counts and convergence per step and member,
-    x and F within 1e-12; returns the batch's per-step stats."""
+    x within 1e-12 and F within f_tol; returns the batch's per-step stats."""
     cfg = cfg or scene["cfg"]
     kw = dict(cfg=cfg, model=scene["model"], colliders=scene["colliders"],
               plasticity=plasticity)
@@ -105,7 +107,7 @@ def _batch_against_singles(scene, members, steps, dt, cfg=None, plasticity=None)
             assert getattr(bs, field) == [getattr(s, field) for _, s in alone], (k, field)
         for got, want in zip(unstack_states(batch), members):
             np.testing.assert_allclose(t2n(got.x), t2n(want.x), rtol=0, atol=1e-12)
-            np.testing.assert_allclose(t2n(got.Ff), t2n(want.Ff), rtol=0, atol=1e-12)
+            np.testing.assert_allclose(t2n(got.Ff), t2n(want.Ff), rtol=0, atol=f_tol)
         records.append(bs)
     return records
 
@@ -229,13 +231,31 @@ def test_plain_kernels_take_a_batch(rng, d, kernel):
     {"solver.linear_solver": "minres"},
     {"solver.matrix_free": False},
 ], ids=["multigrid", "sparse", "lbfgs", "minres", "explicit_bsr"])
-def test_batch_refuses_unported_configurations(override):
+def test_batch_steps_each_configuration(override):
+    """Each configuration that a batch refused before it took them steps a
+    batch of two stiffnesses at 16^2 from stress_state, directly and
+    through Simulation: finite and converged, a count per member."""
     scene = tbuild("block_drop_2d", device="cpu", res=16, dtype=torch.float64)
     cfg = config_from_overrides(scene["cfg"], override)
+    base = stress_state(scene["state"], cfg)
+    batch = stack_states([base, _with_E(base, 1e7)])
+    new, stats = t_advance(batch, 1e-3, 0.0, cfg=cfg, model=scene["model"],
+                           colliders=scene["colliders"])
+    assert torch.isfinite(new.x).all() and stats.converged == [True, True]
+    assert len(stats.newton_iters) == 2 and max(stats.newton_iters) > 0
+    sim = Simulation(cfg, batch, scene["model"], scene["colliders"])
+    s = sim.step(1e-3)
+    assert s.converged == [True, True] and sim.retry_count == 0
+
+
+def test_batch_refuses_a_device_mesh():
+    """A batch refuses what one state refuses: a device mesh other than (1,)."""
+    scene = tbuild("block_drop_2d", device="cpu", res=16, dtype=torch.float64)
+    cfg = config_from_overrides(scene["cfg"], {"mesh.shape": (2,)})
     batch = stack_states([scene["state"]] * 2)
-    with pytest.raises(NotImplementedError, match="a batch"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         t_advance(batch, 1e-3, 0.0, cfg=cfg, model=scene["model"], colliders=scene["colliders"])
-    with pytest.raises(NotImplementedError, match="a batch"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         Simulation(cfg, batch, scene["model"], scene["colliders"])
 
 

@@ -567,9 +567,10 @@ def test_unsupported_dim_is_refused(host_lib):
     assert host_lib.hot_bsr_spmv(0, 4, *[z.data_ptr()] * 4, 1, 125, None) != 0
 
 
-def _launch_pair(host_lib, c, model_name, width, batch, nodes, stats):
+def _launch_pair(host_lib, c, model_name, width, batch, nodes, stats, tgrid=None):
     """The linearize, then the apply on its context, as launched for one
-    member (batch 1) or a stacked batch; returns (f, U, V, A, b+, b-, df)."""
+    member (batch 1) or a stacked batch (on the compact nodes of `tgrid` if
+    given); returns (f, U, V, A, b+, b-, df)."""
     x, F, v = c["x"], c["F"], c["v"]
     d, n = x.shape[-2], x.shape[-1]
     lead = x.shape[:-2]
@@ -579,14 +580,15 @@ def _launch_pair(host_lib, c, model_name, width, batch, nodes, stats):
     bp, bm = (torch.empty(lead + (n_pairs, n), dtype=v.dtype) for _ in range(2))
     code = 0 if v.dtype == torch.float32 else 1
     res = cuda_lib.int_array(c["res"])
+    lookup = (None, 0) if tgrid is None else (_ptr(tgrid.lookup), tgrid.tile)
     rc = host_lib.hot_fused_linearize(
-        fl.MODEL_CODES[model_name], code, d, width, _ptr(v), _ptr(x), c["dx"], res, None, 0,
+        fl.MODEL_CODES[model_name], code, d, width, _ptr(v), _ptr(x), c["dx"], res, *lookup,
         _ptr(F), _ptr(c["mu"]), _ptr(c["lam"]), _ptr(c["V0"]), DT, 1, _ptr(f), _ptr(U),
         _ptr(V), _ptr(A), _ptr(bp), _ptr(bm), n, nodes, batch, 128, fa.WINDOW_NODES,
         _ptr(stats[0]), None)
     assert rc == 0
     df = torch.zeros_like(c["w"])
-    rc = host_lib.hot_fused_apply(code, d, width, _ptr(c["w"]), _ptr(x), c["dx"], res, None, 0,
+    rc = host_lib.hot_fused_apply(code, d, width, _ptr(c["w"]), _ptr(x), c["dx"], res, *lookup,
                                   _ptr(F), *map(_ptr, (U, V, A, bp, bm)), _ptr(c["V0"]), DT,
                                   _ptr(df), n, nodes, batch, 128, fa.WINDOW_NODES,
                                   _ptr(stats[1]), None)
@@ -624,4 +626,58 @@ def test_host_compiled_kernels_batched_launch(host_lib, rng, d, kernel):
         assert g.shape == w.shape and _rel(g, w) <= 1e-12
     for b, s in zip(stats, single_stats):
         assert fa.read_window_stats(b) == fa.read_window_stats(s)
+    assert fa.read_window_stats(stats[0])["blocks"] > 3
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_host_compiled_kernels_batched_tile_grid(host_lib, rng, d):
+    """Three members on a batch's tile grid (fp64), each on its own tile set
+    (its particles shifted by a whole tile and 0.3 of a cell from the
+    previous member's), in one launch: each block reads its member's row of the
+    (B, n_tiles) lookup. f, A, b+-, and df equal the plain version on the
+    same batch to 1e-10 of their largest entry, and each member's outputs
+    equal the member's own single launch on its own tile grid to 1e-12;
+    nothing lands in a member's padding slots or dump row."""
+    members = []
+    for k in range(3):
+        c = _inputs(d, torch.float64, rng)
+        shift = torch.zeros(d, dtype=torch.float64)
+        shift[1] = (k - 1) * (sparse.TILE + 0.3) * c["dx"]
+        c["x"] = c["x"] + shift
+        c["mu"], c["lam"] = c["mu"] * 10.0 ** k, c["lam"] * 10.0 ** k
+        members.append(c)
+    x = torch.stack([c["x"] for c in members])
+    tgrid = sparse.build_tile_grid(x, members[0]["dx"], members[0]["res"], capacity=10 ** 6)
+    assert len(set(map(tuple, tgrid.tile_ids.tolist()))) == 3
+    nodes = tgrid.n_cnodes
+    batch = dict(members[0], x=fa.soa(x, 1), F=fa.soa(torch.stack([c["F"] for c in members]), 1),
+                 **{key: torch.stack([c[key] for c in members]) for key in ("mu", "lam", "V0")})
+    batch["v"], batch["w"] = (torch.as_tensor(rng.standard_normal((3, nodes, d)))
+                              for _ in range(2))
+    slots = sparse.slot_nodes(tgrid)[..., None]
+    batch["v"], batch["w"] = (torch.where(slots, t, 0.0) for t in (batch["v"], batch["w"]))
+    stats = [torch.zeros(N_STATS, dtype=torch.int64) for _ in range(2)]
+    got = _launch_pair(host_lib, batch, "fixed_corotated", 3, 3, nodes, stats, tgrid)
+    model = MODEL_REGISTRY["fixed_corotated"]
+    want = fl.fused_linearize_plain(batch["v"], batch["x"], batch["dx"], batch["res"], batch["F"],
+                                    batch["mu"], batch["lam"], batch["V0"], DT, model,
+                                    tgrid=tgrid)
+    want_df = fa.fused_apply_plain(batch["w"], batch["x"], batch["dx"], batch["res"],
+                                   batch["F"], *want[1:], batch["V0"], DT, tgrid=tgrid)
+    for b in range(3):
+        # U and V may differ from the plain version's by paired column signs
+        for i in (0, 3, 4, 5, 6):
+            assert _rel(got[i][b], (want + (want_df,))[i][b]) <= 1e-10
+        own = tgrid.member(b)
+        n_own = own.n_cnodes - 1
+        alone = dict(batch, x=batch["x"][b], F=batch["F"][b], mu=batch["mu"][b],
+                     lam=batch["lam"][b], V0=batch["V0"][b],
+                     **{k: torch.cat([batch[k][b, :n_own], batch[k][b, -1:]]) for k in "vw"})
+        single = _launch_pair(host_lib, alone, "fixed_corotated", 3, 1, own.n_cnodes,
+                              [None, None], own)
+        for g, s in zip(got, single):
+            g = g[b] if g.shape[-1] == s.shape[-1] else torch.cat([g[b, :n_own], g[b, -1:]])
+            assert _rel(g, s) <= 1e-12
+        for g in (got[0], got[-1]):
+            assert float(g[b, n_own:].abs().max()) == 0
     assert fa.read_window_stats(stats[0])["blocks"] > 3

@@ -113,12 +113,14 @@ Phases, each printing one JSON line:
               the bound of 8 members' bytes. Then the stiffness sweep: the
               64^3 bar (ppc 8) at E = 1e6 2^(k/2), k = -4..3, fp32,
               block-Jacobi, 6 steps from rest as one batch, then each member
-              alone 4 times (fp32 runs part by the atomics' order): at every
-              step a lone run took the member's Newton count with CG within
-              2, x within 1e-4 dx of the nearest lone run or 10 times the
-              lone runs' largest mutual difference, if larger (at most 1e-3
-              dx); launch counters equal to the derived counts,
-              member-steps/s of both, peak memory; and block_drop_2d at
+              alone 4 times (fp32 runs part by the atomics' order): x within
+              1e-4 dx of the nearest lone run or 10 times the lone runs'
+              largest mutual difference, if larger (at most 1e-3 dx), and
+              the steps whose counts no lone run took (Newton equal, CG
+              within 2) recorded; launch counters equal to the derived
+              counts, member-steps/s of both, peak memory; the same sweep in
+              fp64 with each member alone once: Newton equal at every step,
+              CG within 1, x within 1e-8 dx; and block_drop_2d at
               64^2, 16 members (E 1e4..1e7), fp64, 150 steps through impact,
               members 0, 5, 10, 15 alone, 3 times each (the same rule with
               CG within 1, x within 1e-8 dx, the spread at most 1e-4 dx)
@@ -144,6 +146,28 @@ Phases, each printing one JSON line:
               under L-BFGS 127 steps at dt 2e-3, members 0 and 5 held and
               member 15 (whose lone runs part on the card) recorded (phase
               batch's fp64 rule)
+  21 sharded  the slab decomposition (hot_tpu_torch/parallel): (a) both
+              particle kernels on each of 4 slabs of the 64^3 bar (the
+              rank's particles shifted into its extended slab), fp32 and
+              fp64, against their plain versions (2e-5 / 1e-10), the
+              ranks' outputs folded onto the grid against the dense launch,
+              an interior slab's device ms beside the dense launch's; (b)
+              config 4 (stacked_boxes_3d, 64^3, 3 steps from stress_state
+              at mag 2) on 4 ranks sharing the card over a gloo group this
+              script builds (every rank's kernels on the card, the halo,
+              migration and reductions through host memory), block-Jacobi
+              and config 3 (3 levels), fp64, against the one-grid step:
+              Newton equal, CG equal (block-Jacobi) or within 2, x within
+              1e-8 dx of the nearer of two one-grid runs (hold_to_lone; their
+              own spread is recorded), each kernel's launches per rank (a
+              rank with no particle launches none); the fp32 block-Jacobi run's counts and steps/s ("4
+              ranks sharing one card, not a scaling number"); (c) the 64^2 drop with +x
+              drift: particles migrated, a sharded checkpoint restored to
+              the same state and stepped on; (d) the CLI under
+              `python -m torch.distributed.run --standalone
+              --nproc-per-node 1` with mesh.shape=(-1,) on NCCL: the
+              one-grid CLI's counts; (e) 2 NCCL ranks on the card: refused,
+              non-zero exit
 Phase 3 also holds both particle kernels with the cubic stencil (4 nodes per
 axis, every model) and the Neo-Hookean and linear-corotated linearize
 against their plain versions, phase 3b times the cubic kernels at 64^3 and
@@ -164,6 +188,7 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1125,13 +1150,16 @@ SWEEP_STEPS = 6
 # The fp32 bar's members against themselves alone. fp32 trajectories part
 # from run to run by the order of the atomic adds: on an H100 two lone runs
 # of member 2 parted by up to 1.35e-4 dx (36 roundings of x) by step 6, and
-# member 7's sixth step took 6 or 7 Newton iterations alone (7 in the
-# batch), so a check against one lone run at X_TOL failed 6 of 12 sweeps
-# on two checkouts (python -m hot_tpu_torch.ab_batch_sweep). Each member
-# runs alone SWEEP_RUNS times and is held to them by hold_to_lone: a lone
-# run took each step's Newton count, and x is within the larger of X_TOL
-# and SWEEP_SPREAD times the lone runs' spread, which may not pass
-# SWEEP_SPREAD_CAP
+# member 7's sixth step took 6 or 7 Newton iterations, alone or in the
+# batch, so a check against one lone run at X_TOL failed 6 of 12 sweeps on
+# two checkouts (python -m hot_tpu_torch.ab_batch_sweep), and one against
+# 4 lone runs' counts fails where the batch took 6 and all 4 lone runs 7.
+# Each member runs alone SWEEP_RUNS times and is held to them by
+# hold_to_lone: x within the larger of X_TOL and SWEEP_SPREAD times the
+# lone runs' spread, which may not pass SWEEP_SPREAD_CAP; the steps whose
+# counts no lone run took are recorded. The counts are held on the same
+# sweep in fp64, where two runs part by ~1e-14 dx: every member alone
+# once, Newton equal at every step, CG within 1, x within DROP_X_TOL
 SWEEP_RUNS = 4
 SWEEP_SPREAD = 10.0
 SWEEP_SPREAD_CAP = 10 * X_TOL
@@ -1327,20 +1355,21 @@ def scene_members(name, kw, Es, dtype):
     return scene, [with_E(scene["state"], E) for E in Es]
 
 
-def hold_to_lone(newton, cg, xs, lone, dx, cg_diff, x_tol, spread=None, cap=None):
+def hold_to_lone(newton, cg, xs, lone, dx, cg_diff, x_tol, spread=None, cap=None,
+                 counts=True):
     """Member b of a batch (its Newton and CG per step, its x per step)
     against its lone runs `lone` ((stats, x per step) each): at every step a
     lone run took the batch's Newton count with CG within cg_diff, and x is
     within the limit of the nearest lone run, the limit being the larger of
     x_tol and `spread` times the lone runs' largest mutual difference (in
     dx), which may not pass `cap`. With one lone run: Newton equal, CG
-    within cg_diff, x within x_tol. Returns (nearest, limit, lone spread,
-    what failed)."""
-    failed = []
-    for k, (n, c) in enumerate(zip(newton, cg)):
-        if not any(s[k].newton_iters == n and abs(s[k].cg_iters - c) <= cg_diff
-                   for s, _ in lone):
-            failed.append(f"counts at step {k}")
+    within cg_diff, x within x_tol. With counts False the steps whose counts
+    no lone run took are returned and not failed. Returns (nearest, limit,
+    lone spread, the steps no lone run's counts matched, what failed)."""
+    unmatched = [k for k, (n, c) in enumerate(zip(newton, cg))
+                 if not any(s[k].newton_iters == n and abs(s[k].cg_iters - c) <= cg_diff
+                            for s, _ in lone)]
+    failed = [f"counts at step {k}" for k in unmatched] if counts else []
     nearest = min(max(float((xb - xa).abs().max()) for xb, xa in zip(xs, x)) / dx
                   for _, x in lone)
     lone_spread = max((max(float((xa - xc).abs().max()) for xa, xc in zip(a[1], c[1])) / dx
@@ -1350,16 +1379,17 @@ def hold_to_lone(newton, cg, xs, lone, dx, cg_diff, x_tol, spread=None, cap=None
         failed.append(f"lone runs part by {lone_spread} dx")
     if nearest > limit:
         failed.append(f"x {nearest} dx")
-    return nearest, limit, lone_spread, failed
+    return nearest, limit, lone_spread, unmatched, failed
 
 
 def batch_phase(rng, card):
     """Phase 19: both particle kernels on a batch of 8 members of the 64^3
     bar (one launch per call) against their plain versions and the members'
     single launches; the stiffness sweep users run in place of 8 processes
-    (the 64^3 bar at 8 stiffnesses, 6 steps, then each member alone); the 2D
-    sweep through impact (16 members, fp64, 150 steps). Returns the fp32
-    kernel rows by stencil and the two sweeps' rows."""
+    (the 64^3 bar at 8 stiffnesses, 6 steps, then each member alone, in
+    fp32 and in fp64); the 2D sweep through impact (16 members, fp64, 150
+    steps). Returns the fp32 kernel rows by stencil and the three sweeps'
+    rows."""
     batch_summary = {}
     for kernel in ("quadratic", "cubic"):
         for dtype in (torch.float32, torch.float64):
@@ -1377,7 +1407,10 @@ def batch_phase(rng, card):
             ("bar", "twisting_bar_3d", dict(res=SWEEP_RES, ppc=8), SWEEP_E, torch.float32,
              SWEEP_STEPS, range(len(SWEEP_E)),
              dict(cg_diff=2, x_tol=X_TOL, spread=SWEEP_SPREAD, runs=SWEEP_RUNS,
-                  cap=SWEEP_SPREAD_CAP)),
+                  cap=SWEEP_SPREAD_CAP, counts=False)),
+            ("bar_fp64", "twisting_bar_3d", dict(res=SWEEP_RES, ppc=8), SWEEP_E,
+             torch.float64, SWEEP_STEPS, range(len(SWEEP_E)),
+             dict(cg_diff=1, x_tol=DROP_X_TOL)),
             ("drop", "block_drop_2d", dict(res=64), DROP_E, torch.float64, DROP_STEPS,
              DROP_ALONE, dict(cg_diff=1, x_tol=DROP_X_TOL, spread=DROP_SPREAD,
                               runs=DROP_RUNS, cap=DROP_SPREAD_CAP))):
@@ -1390,6 +1423,7 @@ def batch_phase(rng, card):
         sweeps[label] = row
         torch.cuda.empty_cache()
     assert sum(sum(n) for n in sweeps["bar"]["newton"]) > 0, sweeps["bar"]
+    assert sum(sum(n) for n in sweeps["bar_fp64"]["newton"]) > 0, sweeps["bar_fp64"]
     assert min(sum(n) for n in sweeps["drop"]["newton"]) > 0, sweeps["drop"]
     return batch_summary, sweeps
 
@@ -1658,7 +1692,7 @@ def batched_launches(kind, mgc, stats, cg_calls):
 
 
 def solver_sweep(label, kind, scene, cfg, members, steps, dt, alone, cg_diff=None, x_tol=None,
-                 spread=None, runs=1, cap=None, t_start=0.0, witness=()):
+                 spread=None, runs=1, cap=None, t_start=0.0, witness=(), counts=True):
     """Phases 19 and 20: `members` (single states) stepped as one batch
     under cfg (`kind` names the solver for batched_launches), then the
     members `alone` and `witness` one at a time (`runs` times each), from
@@ -1666,8 +1700,8 @@ def solver_sweep(label, kind, scene, cfg, members, steps, dt, alone, cg_diff=Non
     step, max |x_batch - x_alone| / dx, the launch counters against
     batched_launches, member-steps/s of both, MG build ms per Newton, peak
     memory. With cg_diff the lone runs hold the members `alone`
-    (hold_to_lone with x_tol, spread and cap); without, and for `witness`,
-    the counts and differences are recorded. Returns the row, what failed
+    (hold_to_lone with x_tol, spread, cap and counts); without, and for
+    `witness`, the counts and differences are recorded. Returns the row, what failed
     and the operators of the last multigrid preconditioner built in the
     batch (None without)."""
     from hot_tpu_torch.sim.state import stack_states
@@ -1716,9 +1750,9 @@ def solver_sweep(label, kind, scene, cfg, members, steps, dt, alone, cg_diff=Non
             del sim_b
         stats_b, xs_b, retries_b, build_b = lone[0]
         held = b in alone and cg_diff is not None
-        nearest, limit, lone_spread, failed = hold_to_lone(
+        nearest, limit, lone_spread, unmatched, failed = hold_to_lone(
             newton[b], cg[b], [x[b] for x in xs], [o[:2] for o in lone], cfg.dx,
-            cg_diff or 0, x_tol or 0.0, spread, cap)
+            cg_diff or 0, x_tol or 0.0, spread, cap, counts)
         r = dict(member=b, held=held, newton_alone=[s.newton_iters for s in stats_b],
                  cg_alone=[s.cg_iters for s in stats_b],
                  x_diff_over_dx=[float((xb[b] - xa).abs().max()) / cfg.dx
@@ -1732,7 +1766,12 @@ def solver_sweep(label, kind, scene, cfg, members, steps, dt, alone, cg_diff=Non
         if b in alone and any(r["retries"]):
             bad.append(f"member {b} retried alone")
         if held:
-            r.update(x_limit=limit, failed=failed)
+            # a step whose counts no lone run took: each run's Newton, CG and
+            # final CN residual there (cn_eps is the Newton stop)
+            r.update(x_limit=limit, failed=failed, cn_eps=cfg.solver.cn_eps, counts_unmatched=[
+                dict(step=k, batch=[newton[b][k], cg[b][k], stats[k].cn_residual[b]],
+                     alone=[[s[k].newton_iters, s[k].cg_iters, s[k].cn_residual]
+                            for s, *_ in lone]) for k in unmatched])
             if failed:
                 bad.append(f"member {b}")
         alone_rows.append(r)
@@ -1741,7 +1780,8 @@ def solver_sweep(label, kind, scene, cfg, members, steps, dt, alone, cg_diff=Non
                alone_member_steps_per_s=alone_runs * steps / max(alone_seconds, 1e-9),
                alone_max_memory_allocated=alone_peak,
                limits=None if cg_diff is None else dict(
-                   newton="a lone run's", cg_diff=cg_diff, x_diff_over_dx=x_tol,
+                   newton="a lone run's" if counts else "recorded", cg_diff=cg_diff,
+                   x_diff_over_dx=x_tol,
                    x_spread_factor=spread, spread_cap_over_dx=cap, runs=runs))
     return row, bad, mats
 
@@ -1826,6 +1866,291 @@ def batch_solvers_phase(rng, card):
             raise AssertionError(f"batch_solvers drop {kind}: {bad}; {row}")
         assert min(sum(n) for n in row["newton"]) > 0, row
         out["drop"][kind] = row
+    return out
+
+
+# ---- the sharded step on one card: D ranks share it over gloo
+
+SHARDED_RANKS = 4
+SHARDED_CONFIG3 = {"solver.preconditioner": "multigrid", "solver.multigrid.levels": 3,
+                   "solver.multigrid.smoother": "chebyshev",
+                   "solver.multigrid.coarse_solver": "direct",
+                   "solver.multigrid.assembled": True}
+SHARDED_DIR = Path("build") / "chip_smoke_sharded"
+
+
+def slab_inputs(c, rank, ranks):
+    """Rank `rank`'s part of a kernel input set on the slab decomposition:
+    its particles (base plane in its slab), their SoA arrays in the slab's
+    frame, and the grid vectors over its extended slab."""
+    from hot_tpu_torch.ops.fused_apply import soa
+    from hot_tpu_torch.parallel.sharded import make_slab, owner_of
+
+    x = c["x_soa"].T
+    slab = make_slab(c["res"], ranks, rank)
+    mine = torch.nonzero(owner_of(x, c["dx"], c["res"], ranks) == rank).reshape(-1)
+    planes = lambda g: g.reshape(c["res"][0], -1, c["d"])[slab.org:slab.org + slab.ext_planes]  # noqa: E731
+    return slab, mine, dict(c, v=planes(c["v"]).reshape(-1, c["d"]).contiguous(),
+                            w=planes(c["w"]).reshape(-1, c["d"]).contiguous(),
+                            x_soa=soa(slab.local_x(x[mine], c["dx"])),
+                            F_soa=c["F_soa"][:, mine].contiguous(), F=c["F"][mine],
+                            mu=c["mu"][mine].contiguous(), lam=c["lam"][mine].contiguous(),
+                            V0=c["V0"][mine].contiguous(), res=slab.ext_res, n=int(mine.numel()))
+
+
+def check_slab_kernels(dtype, rng, timing):
+    """Phase 21 (a): both particle kernels on each of SHARDED_RANKS slabs of
+    the 64^3 twisting bar, against their plain versions on the same slab
+    inputs, and the ranks' outputs folded onto the global grid against the
+    dense launch; with `timing`, device ms per launch of an interior rank's
+    slab beside the dense launch's, and the slab launch's bound."""
+    from hot_tpu_torch.ops import fused_apply as fa
+    from hot_tpu_torch.ops import fused_linearize as fl
+    from hot_tpu_torch.ops import transfer
+
+    c = kernel_inputs("twisting_bar_3d", "fixed_corotated", dtype, rng, 64)
+    d, res = c["d"], c["res"]
+    dense_f = fl.fused_linearize_cuda(*lin_args(c))
+    dense_df = fa.fused_apply_cuda(*apply_args(c, dense_f[1:]))
+    folded_f, folded_df = torch.zeros_like(dense_f[0]), torch.zeros_like(dense_df)
+    errs, per_rank = {}, []
+    for r in range(SHARDED_RANKS):
+        slab, mine, s = slab_inputs(c, r, SHARDED_RANKS)
+        got = fl.fused_linearize_cuda(*lin_args(s))
+        want = fl.fused_linearize_plain(*lin_args(s))
+        ctx = list(want[1:])
+        df = fa.fused_apply_cuda(*apply_args(s, ctx))
+        df_plain = fa.fused_apply_plain(*apply_args(s, ctx))
+        e = {"lin_f": rel_err(got[0], want[0]), "lin_A": rel_err(got[3], want[3]),
+             "apply_df": rel_err(df, df_plain)}
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, (0.0, 0.0)), v, key=lambda t: t[1])
+        lo = slab.org * slab.plane_nodes
+        folded_f[lo:lo + slab.n_ext] += got[0]
+        # the apply on the rank's part of the dense launch's Hessian context
+        dctx = [t[:, mine].contiguous() for t in dense_f[1:]]
+        folded_df[lo:lo + slab.n_ext] += fa.fused_apply_cuda(*apply_args(s, dctx))
+        per_rank.append(dict(rank=r, particles=s["n"], ext_planes=slab.ext_planes,
+                             rel_err={k: v[1] for k, v in e.items()}))
+        if timing and r == 1:
+            touched = int(torch.unique(transfer.particle_stencil(
+                s["x_soa"].T, s["dx"], s["res"]).node_ids).numel())
+            clamped = clamp_share(dict(s, st=transfer.particle_stencil(s["x_soa"].T, s["dx"],
+                                                                        s["res"])))
+            slab_timing = {}
+            calls = {"fused_linearize": (lambda: fl.fused_linearize_cuda(*lin_args(s)),
+                                         lambda: fl.fused_linearize_plain(*lin_args(s)),
+                                         lambda: fl.fused_linearize_cuda(*lin_args(c))),
+                     "fused_apply": (lambda: fa.fused_apply_cuda(*apply_args(s, ctx)),
+                                     lambda: fa.fused_apply_plain(*apply_args(s, ctx)),
+                                     lambda: fa.fused_apply_cuda(*apply_args(c, dense_f[1:])))}
+            for name, (fn, plain, dense) in calls.items():
+                row = {}
+                row["ms"], row["ms_source"] = device_ms(fn, 50, name + "_kernel")
+                row["dense_ms"] = device_ms(dense, 50, name + "_kernel")[0]
+                row["plain_ms"] = cuda_time_ms(plain, 5)
+                nbytes = particle_kernel_bytes(name, s["n"], touched, d, c["v"].element_size())
+                flops = s["n"] * (FLOPS_PER_PARTICLE[name, 3] + (
+                    CLAMP_FLOPS * clamped if name == "fused_linearize" else 0))
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                slab_timing[name] = row
+            per_rank[-1]["timing"] = slab_timing
+    errs["folded_f"] = rel_err(folded_f, dense_f[0])
+    errs["folded_df"] = rel_err(folded_df, dense_df)
+    return errs, per_rank
+
+
+def _sharded_rank(rank, world, init, spec, out):
+    """One rank of phase 21 (b) and (c), on the card over gloo."""
+    import torch.distributed as dist
+
+    from hot_tpu_torch.ops import cuda_lib
+    from hot_tpu_torch.parallel.mesh import make_mesh
+    from hot_tpu_torch.parallel.sharded_step import ShardedSimulation
+    from hot_tpu_torch.scenes import build_scene, stress_state
+    from hot_tpu_torch.utils.config import config_from_overrides
+
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    cuda_lib.load()            # built by the parent
+    mesh = make_mesh()
+    results = {}
+    for label, case in spec.items():
+        scene = build_scene(case["scene"], device="cuda", dtype=case["dtype"], **case["kw"])
+        cfg = config_from_overrides(scene["cfg"], case["over"])
+        state = (stress_state(scene["state"], cfg, mag=case["stress"]) if case["stress"]
+                 else scene["state"])
+        if case.get("drift"):
+            state = state.replace(v=state.v + torch.tensor(case["drift"], dtype=state.v.dtype,
+                                                           device="cuda"))
+        sim = ShardedSimulation(mesh, cfg, state, scene["model"], scene["colliders"])
+        dist.barrier()
+        torch.cuda.synchronize()
+        (stats, seconds), launches = counted(lambda: run_steps(sim, case["steps"], case["dt"]))
+        row = dict(newton=[s.newton_iters for s in stats], cg=[s.cg_iters for s in stats],
+                   converged=[s.converged for s in stats], retries=sim.retry_count,
+                   seconds=seconds, launches=launches, migrated=sim.migrated,
+                   particles=sim.ps.n)
+        row["x"] = sim.state.x.cpu().numpy() if case.get("keep_x") else None
+        if case.get("checkpoint"):
+            path = str(SHARDED_DIR / "ckpt")
+            saved = sim.state
+            sim.save_checkpoint(path)
+            sim2 = ShardedSimulation(mesh, cfg, state, scene["model"], scene["colliders"])
+            sim2.restore(path)
+            back = sim2.state
+            row["restore_equal"] = all(bool(torch.equal(getattr(saved, f), getattr(back, f)))
+                                       for f in ("x", "v", "Cf", "Ff", "m", "Jp"))
+            sim.step(case["dt"])
+            sim2.step(case["dt"])
+            row["resumed_x_diff_over_dx"] = float((sim.state.x - sim2.state.x).abs().max()) / cfg.dx
+        all_rows = [None] * world
+        dist.all_gather_object(all_rows, {k: v for k, v in row.items() if k != "x"})
+        row["launches_all_ranks"] = {k: sum(r["launches"][k] for r in all_rows)
+                                     for k in row["launches"]}
+        row["launches_per_rank"] = [r["launches"] for r in all_rows]
+        row["particles_per_rank"] = [r["particles"] for r in all_rows]
+        results[label] = row
+        del sim
+        torch.cuda.empty_cache()
+    if rank == 0:
+        import pickle
+
+        with open(out, "wb") as fh:
+            pickle.dump(results, fh)
+    dist.destroy_process_group()
+
+
+def sharded_phase(rng, card):
+    """Phase 21 sharded (see the module doc): (a) the particle kernels on
+    each rank's slab; (b) config 4 at full size, SHARDED_RANKS ranks sharing
+    the card over gloo, against the one-grid step; (c) migration and a
+    sharded checkpoint; (d) the CLI on NCCL at world size 1; (e) the CLI's
+    refusal of two NCCL ranks on one card. Returns the rows the kernels line
+    reads."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from hot_tpu_torch.scenes import build_scene, stress_state
+    from hot_tpu_torch.sim import Simulation
+    from hot_tpu_torch.utils.config import config_from_overrides
+
+    out = {}
+    shutil.rmtree(SHARDED_DIR, ignore_errors=True)
+    SHARDED_DIR.mkdir(parents=True)
+    # (a) the slab launches
+    for dtype in (torch.float32, torch.float64):
+        errs, per_rank = check_slab_kernels(dtype, rng, timing=dtype == torch.float32)
+        tol = 2e-5 if dtype == torch.float32 else 1e-10
+        emit("sharded", card=card, case="slab_kernels", dtype=str(dtype), ranks=SHARDED_RANKS,
+             rel_err={k: v[1] for k, v in errs.items()},
+             max_abs_err={k: v[0] for k, v in errs.items()}, limit=tol, per_rank=per_rank)
+        bad = {k: v[1] for k, v in errs.items() if not v[1] <= tol}
+        if bad:
+            raise AssertionError(f"slab kernels disagree: {bad}")
+        if dtype == torch.float32:
+            out["slab"] = dict(max_abs_err=errs, timing=per_rank[1]["timing"])
+        torch.cuda.empty_cache()
+
+    # (b) config 4 at full size on SHARDED_RANKS ranks sharing the card over
+    # gloo (halo, migration and reductions through host memory), against the
+    # one-grid step from the same state; (c) the migrating 2D drop
+    # from stress_state at a quarter of its default velocity (the boxes
+    # compressed into each other from the first step): at the default,
+    # config 3's first step stalls and is retried (phase config4), and two
+    # one-grid runs then part in their counts; from rest no step needs Newton
+    boxes = dict(scene="stacked_boxes_3d", kw=dict(res=64), stress=2.0, steps=3, dt=DT)
+    spec = {
+        "bj_fp64": dict(boxes, dtype=torch.float64, over={}, keep_x=True),
+        "config3_fp64": dict(boxes, dtype=torch.float64, over=SHARDED_CONFIG3, keep_x=True),
+        "bj_fp32": dict(boxes, dtype=torch.float32, over={}),
+        "drift": dict(scene="block_drop_2d", kw=dict(res=64), stress=False, steps=6, dt=4e-3,
+                      dtype=torch.float64, over={}, drift=[0.35, 0.0], checkpoint=True),
+    }
+    rendezvous = tempfile.mkdtemp(dir=SHARDED_DIR)
+    t0 = time.perf_counter()
+    mp.spawn(_sharded_rank, args=(SHARDED_RANKS, f"file://{rendezvous}/init", spec,
+                                  str(SHARDED_DIR / "ranks.pkl")), nprocs=SHARDED_RANKS)
+    spawn_seconds = time.perf_counter() - t0
+    with open(SHARDED_DIR / "ranks.pkl", "rb") as fh:
+        ranks = pickle.load(fh)
+    for label in ("bj_fp64", "config3_fp64"):
+        case = spec[label]
+        scene = build_scene(case["scene"], device="cuda", dtype=case["dtype"], **case["kw"])
+        cfg = config_from_overrides(scene["cfg"], case["over"])
+        # the one-grid step twice: fp64 atomics' order makes two runs part
+        lone = []
+        for _ in range(2):
+            sim = Simulation(cfg, stress_state(scene["state"], cfg, mag=case["stress"]),
+                             scene["model"], scene["colliders"])
+            stats, seconds = run_steps(sim, case["steps"], case["dt"])
+            lone.append((stats, [sim.state.x], sim.retry_count, seconds))
+        got = ranks[label]
+        xs = [torch.as_tensor(got["x"], device="cuda")]
+        nearest, limit, spread, _, failed = hold_to_lone(
+            got["newton"], got["cg"], xs, [(st, x) for st, x, _, _ in lone],
+            cfg.dx, 0 if label == "bj_fp64" else 2, 1e-8)
+        row = {k: v for k, v in got.items() if k != "x"}
+        row.update(one_grid_newton=[s.newton_iters for s in lone[0][0]],
+                   one_grid_cg=[s.cg_iters for s in lone[0][0]], one_grid_seconds=lone[0][3],
+                   one_grid_retries=lone[0][2], x_diff_over_dx=nearest, x_limit_over_dx=limit,
+                   one_grid_spread_over_dx=spread)
+        emit("sharded", card=card, case=label, scene="stacked_boxes_3d", res=64,
+             ranks=SHARDED_RANKS, backend="gloo, 4 ranks sharing one card", **row)
+        assert all(got["converged"]) and got["retries"] == lone[0][2], row
+        assert not failed and sum(got["newton"]) > 0, (failed, row)
+        assert got["launches_all_ranks"]["fused_apply"] > 0, row
+        assert got["launches_all_ranks"]["fused_linearize"] > 0, row
+        if label == "config3_fp64":
+            assert got["launches_all_ranks"]["bsr_spmv"] > 0, row
+        out[label] = row
+        del sim, scene, lone
+        torch.cuda.empty_cache()
+    for label in ("bj_fp32",):
+        got = ranks[label]
+        emit("sharded", card=card, case=label, scene="stacked_boxes_3d", res=64,
+             ranks=SHARDED_RANKS, note="4 ranks sharing one card, not a scaling number",
+             steps_per_s=len(got["newton"]) / got["seconds"],
+             **{k: v for k, v in got.items() if k != "x"})
+        assert all(got["converged"]), got
+    got = ranks["drift"]
+    emit("sharded", card=card, case="migration", scene="block_drop_2d", res=64,
+         ranks=SHARDED_RANKS, **{k: v for k, v in got.items() if k != "x"})
+    assert got["migrated"] > 0 and got["restore_equal"], got
+    assert got["resumed_x_diff_over_dx"] <= 1e-8, got
+
+    # (d) the CLI on NCCL, one rank per GPU (world size 1 on this card),
+    # against the one-grid CLI; (e) two NCCL ranks on one card are refused
+    cli = ["-m", "hot_tpu_torch", "--scene", "twisting_bar_3d", "--frames", "1", "--quiet",
+           "--f64", "--scene-arg", "res=32", "--scene-arg", "ppc=4", "--frame-format", "npz",
+           "--checkpoint-every", "0", "--set", "frame_dt=0.006"]
+    env = dict(os.environ, PYTHONPATH=str(Path.cwd()))
+    runs = {}
+    for label, launcher in (("one_grid", [sys.executable]),
+                            ("nccl", [sys.executable, "-m", "torch.distributed.run",
+                                      "--standalone", "--nproc-per-node", "1"])):
+        extra = ["--set", "mesh.shape=(-1,)"] if label == "nccl" else []
+        run = subprocess.run(launcher + cli + extra + ["-o", str(SHARDED_DIR / label)],
+                             capture_output=True, text=True, env=env, timeout=300)
+        if run.returncode != 0:
+            raise AssertionError(f"CLI {label} failed ({run.returncode}): {run.stderr[-3000:]}")
+        recs = [json.loads(line) for line in open(SHARDED_DIR / label / "metrics.jsonl")]
+        runs[label] = [(r["newton_iters"], r["cg_iters"]) for r in recs if "newton_iters" in r]
+    emit("sharded", card=card, case="cli_nccl", steps=len(runs["nccl"]), counts=runs["nccl"],
+         one_grid_counts=runs["one_grid"])
+    assert runs["nccl"] == runs["one_grid"] and sum(c[0] for c in runs["nccl"]) > 0, runs
+    refuse = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2"]
+        + cli + ["--set", "mesh.shape=(-1,)", "-o", str(SHARDED_DIR / "refused")],
+        capture_output=True, text=True, env=env, timeout=300)
+    said = "one rank per GPU" in refuse.stderr + refuse.stdout
+    emit("sharded", card=card, case="cli_refuses_two_nccl_ranks", returncode=refuse.returncode,
+         message_found=said, spawn_seconds=spawn_seconds)
+    assert refuse.returncode != 0 and said, refuse.stderr[-3000:]
+    out["launches"] = ranks["config3_fp64"]["launches_all_ranks"]
+    out["bj_launches"] = ranks["bj_fp64"]["launches_all_ranks"]
     return out
 
 
@@ -2609,6 +2934,10 @@ def main(argv=None):
     # multigrid, MINRES, L-BFGS and the explicit BSR
     solvers = batch_solvers_phase(rng, card)
     lap("batch_solvers")
+
+    # ---- 21 sharded: the slab decomposition, D ranks sharing the card
+    sharded = sharded_phase(rng, card)
+    lap("sharded")
     emit("runtime", seconds=laps, total_seconds=sum(laps.values()))
 
     spmv = summary["spmv"]
@@ -2677,6 +3006,24 @@ def main(argv=None):
                 "library_ms": None}
 
     batch_spmv = solvers["spmv"]
+
+    def slab_row(name):
+        """The slab launch: launches on config 4's sharded run under config 3
+        (summed over the ranks, phase sharded (b), fp64; a rank holding no
+        particle launches none), the worst rank's error against
+        the plain version and device ms of an interior rank's launch at
+        64^3 (fp32, (a))."""
+        row = sharded["slab"]["timing"][name]
+        err = sharded["slab"]["max_abs_err"]["lin_f" if name == "fused_linearize"
+                                             else "apply_df"][0]
+        return {"name": f"{name}_slab", "route": "cuda",
+                "source": f"hot_tpu_torch/csrc/{name}.cu",
+                "replaces": {"fused_linearize": "hot_tpu/ops/pallas_linearize.py:374",
+                             "fused_apply": "hot_tpu/ops/pallas_apply.py:143"}[name],
+                "launches": sharded["launches"][name], "max_abs_err": err,
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
         particle_row("fused_linearize", "quadratic"),
         particle_row("fused_apply", "quadratic"),
@@ -2701,6 +3048,8 @@ def main(argv=None):
          "max_abs_err": batch_spmv["max_abs_err"], "ms": batch_spmv["ms"],
          "plain_ms": batch_spmv["plain_ms"], "bound_ms": batch_spmv["bound_ms"],
          "bound_by": batch_spmv["bound_by"], "library_ms": batch_spmv["library_ms"]},
+        slab_row("fused_linearize"),
+        slab_row("fused_apply"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,9 @@ counterpart is easy to find:
   solver    projected CG and MINRES, inexact Newton with optional line
             search, L-BFGS, node-embedding multigrid on dense and compact
             levels
-
-Multi-GPU (hot_tpu.parallel) is not ported: a device mesh raises.
+  parallel  the slab decomposition over torch.distributed (hot_tpu.parallel):
+            halo exchange, the sharded step and multigrid, migration,
+            sharded checkpoints
   sim       state, seeding, colliders, the objective, the time step,
             conservation queries and the finite-difference check
   io        checkpoints, render frames, OBJ meshes and sampling inside them

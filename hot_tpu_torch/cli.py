@@ -12,6 +12,19 @@ and a checkpoint every ``--checkpoint-every`` frames (ckpt_NNNNN.npz) into
 the run directory. ``--resume ckpt_NNNNN.npz`` continues a run from a
 checkpoint: it starts at the frame after the checkpoint's time and repeats
 the uninterrupted run's frames (bit for bit on the CPU).
+
+A device mesh (``--set mesh.shape="(-1,)"``, any shape but (1,)) runs the
+sharded step (``parallel.ShardedSimulation``), one process per rank, as
+``torchrun`` starts them:
+
+    torchrun --standalone --nproc-per-node 4 -m hot_tpu_torch \
+        --scene stacked_boxes_3d --set mesh.shape="(-1,)" -o runs/boxes
+
+NCCL with one rank per GPU on cuda (more local ranks than visible GPUs
+raise before any step), gloo on the CPU. Rank 0 prints, writes the frames
+(the particles gathered in their original order) and the metrics; a
+checkpoint is a directory ckpt_NNNNN/ of one shard_pNNNN.npz per rank, and
+``--resume`` takes such a directory.
 """
 
 from __future__ import annotations
@@ -87,48 +100,95 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to run on the CPU")
 
+    overrides = _pairs(args.set)
+    sharded = tuple(overrides.get("mesh.shape", (1,))) != (1,)
+    rank = 0
+    if sharded:
+        # before anything touches the GPU: this process's device, or the
+        # refusal of more ranks than GPUs
+        from hot_tpu_torch.parallel import distributed
+        from hot_tpu_torch.parallel.sharded_step import ShardedSimulation
+
+        mesh = distributed.initialize(device)
+        rank = mesh.rank
     scene_kwargs = _pairs(args.scene_arg)
     if args.f64:
         scene_kwargs["dtype"] = torch.float64
     scene = build_scene(args.scene, device=device, **scene_kwargs)
-    cfg = config_from_overrides(scene["cfg"], _pairs(args.set))
+    cfg = config_from_overrides(scene["cfg"], overrides)
 
     out_dir = args.output or os.path.join("runs", f"{args.scene}-{int(time.time())}")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
-    metrics = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), echo=not args.quiet)
+    if rank == 0:
+        with open(os.path.join(out_dir, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
+    metrics = (MetricsLogger(os.path.join(out_dir, "metrics.jsonl"), echo=not args.quiet)
+               if rank == 0 else MetricsLogger())
     model = MODEL_REGISTRY[args.model] if args.model else scene["model"]
-    sim = Simulation(cfg, scene["state"], model, scene["colliders"],
-                     plasticity=scene["plasticity"], metrics=metrics)
+    if sharded:
+        mesh = distributed.mesh_from_config(cfg.mesh, mesh)
+        if device.type == "cuda":
+            _build_kernels_once(mesh)
+        sim = ShardedSimulation(mesh, cfg, scene["state"], model, scene["colliders"],
+                                plasticity=scene["plasticity"],
+                                metrics=metrics)
+    else:
+        sim = Simulation(cfg, scene["state"], model, scene["colliders"],
+                         plasticity=scene["plasticity"], metrics=metrics)
     start_frame = 0
     if args.resume:
-        sim.state, sim.t, sim.step_count = load_checkpoint(args.resume, device=device,
-                                                           dtype=scene["state"].x.dtype)
+        if sharded:
+            sim.restore(args.resume)
+        else:
+            sim.state, sim.t, sim.step_count = load_checkpoint(
+                args.resume, device=device, dtype=scene["state"].x.dtype)
         start_frame = int(sim.t / cfg.frame_dt + 0.5)
-        print(f"resumed from {args.resume} at t={sim.t:.4f} (frame {start_frame})")
-    print(f"scene={args.scene} particles={sim.state.n} grid={cfg.grid_res} "
-          f"device={device} model={model.name} precond={cfg.solver.preconditioner}", flush=True)
+        if rank == 0:
+            print(f"resumed from {args.resume} at t={sim.t:.4f} (frame {start_frame})")
+    if rank == 0:
+        mesh_note = f" mesh={sim.mesh.size} ranks ({sim.mesh.backend})" if sharded else ""
+        print(f"scene={args.scene} particles={scene['state'].n} grid={cfg.grid_res} "
+              f"device={device} model={model.name} precond={cfg.solver.preconditioner}"
+              f"{mesh_note}", flush=True)
 
     try:
         for frame in range(start_frame, args.frames):
             t0 = time.perf_counter()
             sim.advance_frame()
-            save_frame(os.path.join(out_dir, f"frame_{frame:05d}.{args.frame_format}"),
-                       sim.state)
+            state = sim.state          # on a mesh, every rank takes part in the gather
+            if rank == 0:
+                save_frame(os.path.join(out_dir, f"frame_{frame:05d}.{args.frame_format}"),
+                           state)
             if args.checkpoint_every and (frame + 1) % args.checkpoint_every == 0:
-                save_checkpoint(os.path.join(out_dir, f"ckpt_{frame:05d}.npz"), sim.state,
-                                sim.t, sim.step_count)
-            if not args.quiet:
+                path = os.path.join(out_dir, f"ckpt_{frame:05d}")
+                if sharded:
+                    sim.save_checkpoint(path)
+                else:
+                    save_checkpoint(path + ".npz", state, sim.t, sim.step_count)
+            if not args.quiet and rank == 0:
                 print(f"frame {frame}: t={sim.t:.4f} steps={sim.step_count} "
                       f"({time.perf_counter() - t0:.2f}s)", flush=True)
             if args.max_steps and sim.step_count >= args.max_steps:
                 break
-        with open(os.path.join(out_dir, "timers.txt"), "w") as fh:
-            fh.write(sim.timer.report())
+        if rank == 0:
+            with open(os.path.join(out_dir, "timers.txt"), "w") as fh:
+                fh.write(sim.timer.report())
     finally:
         metrics.close()
     return 0
+
+
+def _build_kernels_once(mesh):
+    """Rank 0 builds the CUDA library while the others wait, so that the
+    ranks of a cold start do not run one nvcc build each."""
+    import torch.distributed as dist
+
+    from hot_tpu_torch.ops import cuda_lib
+
+    if mesh.rank == 0:
+        cuda_lib.load()
+    dist.barrier(group=mesh.group)
+    cuda_lib.load()
 
 
 if __name__ == "__main__":

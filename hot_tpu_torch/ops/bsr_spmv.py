@@ -15,7 +15,8 @@ On the H100 the kernel is bound by bytes (vals and col_row, each read once;
 see the source's note).
 
 Dispatch is by device: CPU tensors take ``bsr_spmv_plain``; CUDA tensors
-launch the kernel or raise. ``launches`` counts kernel launches.
+launch the kernel or raise. ``launches`` counts kernel launches
+(none for a matrix with no rows).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def bsr_spmv_cuda(vals, col_row, x):
     rc = lib.hot_bsr_spmv(cuda_lib.dtype_code(x), d, vals.data_ptr(), col_row.data_ptr(),
                           x.data_ptr(), y.data_ptr(), R, K, cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "bsr_spmv")
-    launches += 1
+    launches += R > 0          # the C entry launches nothing for no rows
     return y
 
 

@@ -48,7 +48,7 @@ slots) each member's blocks read its own row of the (B, n_tiles) lookup.
 
 Dispatch is by device: CPU tensors take ``fused_apply_plain``; CUDA tensors
 launch the kernel or raise. ``launches`` counts kernel launches, one per
-call, whatever the batch.
+call, whatever the batch, none for a call with no particle.
 """
 
 from __future__ import annotations
@@ -234,7 +234,7 @@ def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
         *launch_args(w, width, threads, window_nodes, window_stats),
         cuda_lib.stream_ptr(w.device))
     cuda_lib.check(rc, "fused_apply")
-    launches += 1
+    launches += x.shape[-1] > 0    # the C entry launches nothing for no particles
     return df
 
 

@@ -33,7 +33,7 @@ launch.
 
 Dispatch is by device: CPU tensors take ``fused_linearize_plain``; CUDA
 tensors launch the kernel or raise. ``launches`` counts kernel launches, one
-per call; ``window_stats`` works as in ``ops.fused_apply``.
+per call with particles; ``window_stats`` works as in ``ops.fused_apply``.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool
         *launch_args(v, width, threads, window_nodes, window_stats),
         cuda_lib.stream_ptr(v.device))
     cuda_lib.check(rc, "fused_linearize")
-    launches += 1
+    launches += n > 0          # the C entry launches nothing for no particles
     return f, U, V, A, bp, bm
 
 

@@ -42,7 +42,7 @@ def embedding_weights(coords_f, dtype):
     w_axes = quadratic_kernel_1d(xs - base)         # (n, dim, 3)
     w = w_axes[:, 0]
     for a in range(1, dim):
-        w = (w[:, :, None] * w_axes[:, a, None, :]).reshape(w.shape[0], -1)
+        w = (w[:, :, None] * w_axes[:, a, None, :]).reshape(w.shape[0], 3 ** (a + 1))
     return base.long(), w
 
 
@@ -67,17 +67,26 @@ def _parity_pattern(h: int, wm: int, w1d: int):
 
 
 def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
-        max_half: Optional[int] = None, coarse_tgrid=None) -> bsr_mod.BsrMatrix:
+        max_half: Optional[int] = None, coarse_tgrid=None, fine_origin: int = 0,
+        coarse_origin: int = 0) -> bsr_mod.BsrMatrix:
     """A_c = P^T A P over the active coarse nodes (compact nodes of
     `coarse_tgrid` if given); for a batch's A, coarse_active is (B, n_c).
 
     max_half caps the output stencil half (MultigridConfig.rap_max_half):
-    the |offset| > max_half couplings are dropped symmetrically."""
+    the |offset| > max_half couplings are dropped symmetrically.
+
+    fine_origin / coarse_origin: the global plane (axis 0) of the first
+    plane of A's grid and of the coarse grid, when both are slabs of
+    global grids (``parallel.sharded_mg``: the embedding's parities and
+    weights are those of the global coordinates)."""
     dim, h, Kf = A.dim, A.half, A.K
     dd = dim * dim
     dtype, device = A.vals.dtype, A.vals.device
     R = A.n_rows
     coords = bsr_mod.row_coords(A)
+    if fine_origin:
+        coords = coords.clone()
+        coords[:, 0] += fine_origin
 
     # ---- step 1: W = A P (fine rows x coarse window), per parity class
     wm = (h + 1) // 2
@@ -106,6 +115,8 @@ def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
                             tgrid=coarse_tgrid)
     Kc = A_c.K
     base_j, w_j = embedding_weights(coords, dtype)
+    if coarse_origin:
+        base_j[:, 0] -= coarse_origin
     emb_offs = stencil_offsets(dim, device=device)                 # (3^d, dim)
     member = A.row_member()
     Jc_node = bsr_mod.coords_to_nodes(coarse_res, coarse_tgrid,

@@ -39,8 +39,10 @@ The step is eager PyTorch; dt is a Python float. As in hot_tpu, cubic
 transfers refuse every operator assembled into the 5-wide quadratic BSR:
 the explicit outer Hessian, assembled multigrid levels and (the port's
 addition) the direct coarse solve; the sparse grid refuses cubic transfers
-and the explicit outer Hessian. Not ported (they raise NotImplementedError):
-a device mesh other than (1,) and the halo overlap of the sharded step.
+and the explicit outer Hessian. A device mesh other than (1,) runs through
+``parallel.ShardedSimulation``: this one-grid step refuses it (a batch under
+a mesh raises NotImplementedError, as hot_tpu has no such path), and
+``solver.overlap_halo`` is read only by the sharded step.
 """
 
 from __future__ import annotations
@@ -91,16 +93,14 @@ NONLINEAR = ("newton", "lbfgs")
 DRUCKER_PRAGER_FRICTION_DEG = 30.0
 
 
-def _check_supported(cfg: SimConfig, plasticity):
+def _check_supported(cfg: SimConfig, plasticity, batched: bool = False):
     sol = cfg.solver
     mgc = sol.multigrid
-    unsupported = [
-        (tuple(cfg.mesh.shape) != (1,), f"a device mesh of shape {tuple(cfg.mesh.shape)}"),
-        (sol.overlap_halo, "solver.overlap_halo (the sharded step's halo overlap)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to hot_tpu_torch yet")
+    if tuple(cfg.mesh.shape) != (1,):
+        if batched:
+            raise NotImplementedError("a batch under a device mesh: hot_tpu has no such path")
+        raise ValueError(f"a device mesh of shape {tuple(cfg.mesh.shape)} runs through "
+                         "hot_tpu_torch.parallel.ShardedSimulation, not the one-grid step")
     for name, value, allowed in (("integrator", sol.integrator, INTEGRATORS),
                                  ("nonlinear", sol.nonlinear, NONLINEAR),
                                  ("grid_backend", cfg.grid_backend, GRID_BACKENDS)):
@@ -275,6 +275,29 @@ def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
     )
 
 
+def update_particles(state: ParticleState, st: transfer.Stencil, v_new, v_grid, dt: float,
+                     cfg: SimConfig, plasticity: Optional[str]) -> ParticleState:
+    """G2P of the solved grid velocities v_new (FLIP blends in the change
+    from the pre-solve v_grid), the F update and return map, and the
+    advection clamped to the grid's inner cells."""
+    dim, dx = cfg.dim, cfg.dx
+    res = tuple(cfg.grid_res[:dim])
+    dtype, device = state.x.dtype, state.x.device
+    d_inv = apic_d_inv_factor(cfg.transfer_kernel)
+    v_pic, grad_v, C_new = transfer.g2p(st, v_new, dx, d_inv_factor=d_inv)
+    if cfg.transfer == "flip":
+        v_old, _, _ = transfer.g2p(st, v_grid, dx, d_inv_factor=d_inv)
+        v_p = (1.0 - cfg.flip_ratio) * v_pic + cfg.flip_ratio * (state.v + (v_pic - v_old))
+        C_next = torch.zeros_like(state.C)
+    else:
+        v_p, C_next = v_pic, C_new
+    eye = torch.eye(dim, dtype=dtype, device=device)
+    F_new, Jp_new = return_map(plasticity, (eye + dt * grad_v) @ state.F, state)
+    hi = (torch.tensor(res, dtype=dtype, device=device) - 3.0) * dx
+    x_new = torch.minimum(torch.clamp(state.x + dt * v_pic, min=2.0 * dx), hi)
+    return state.replace(x=x_new, v=v_p, C=C_next, F=F_new, Jp=Jp_new)
+
+
 def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfig,
                      model, colliders: Sequence[collision.Collider],
                      plasticity: Optional[str] = None) -> Tuple[ParticleState, StepStats]:
@@ -288,7 +311,7 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     batched = state.batch is not None
-    _check_supported(cfg, plasticity)
+    _check_supported(cfg, plasticity, batched)
     dim = cfg.dim
     res = tuple(cfg.grid_res[:dim])
     dx = cfg.dx
@@ -334,21 +357,8 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     else:
         result = _newton_update(model, objective, cfg, state, v0, constrained)
     v_new = collision.apply_bc_to_velocity(result.v, proj, v_bc)
-
-    # ---- G2P + state update
-    d_inv = apic_d_inv_factor(cfg.transfer_kernel)
-    v_pic, grad_v, C_new = transfer.g2p(st, v_new, dx, d_inv_factor=d_inv)
-    if cfg.transfer == "flip":
-        v_old, _, _ = transfer.g2p(st, v_grid, dx, d_inv_factor=d_inv)
-        v_p = (1.0 - cfg.flip_ratio) * v_pic + cfg.flip_ratio * (state.v + (v_pic - v_old))
-        C_next = torch.zeros_like(state.C)
-    else:
-        v_p, C_next = v_pic, C_new
-    eye = torch.eye(dim, dtype=dtype, device=device)
-    F_new, Jp_new = return_map(plasticity, (eye + dt * grad_v) @ state.F, state)
-    hi = (torch.tensor(res, dtype=dtype, device=device) - 3.0) * dx
-    x_new = torch.minimum(torch.clamp(state.x + dt * v_pic, min=2.0 * dx), hi)
-    new_state = state.replace(x=x_new, v=v_p, C=C_next, F=F_new, Jp=Jp_new)
+    new_state = update_particles(state, st, v_new, v_grid, dt, cfg, plasticity)
+    v_p, F_new = new_state.v, new_state.F
 
     # ---- diagnostics (one readback), per member for a batch
     if cfg.compute_energy:
@@ -387,13 +397,15 @@ def _members(values):
 class Simulation:
     """The frame loop: CFL dt, the step with dt-halving retries, metrics.
     A batch's members share dt, and a step is retried unless every member
-    converged to a finite state."""
+    converged to a finite state. ``parallel.ShardedSimulation`` runs the
+    same loop over the slab decomposition (its hooks: ``_check``,
+    ``_max_speed``, ``_attempt``, ``_accept``)."""
 
     def __init__(self, cfg: SimConfig, state: ParticleState, model,
                  colliders: Sequence[collision.Collider] = (),
                  plasticity: Optional[str] = None,
                  metrics: Optional[MetricsLogger] = None):
-        _check_supported(cfg, plasticity)
+        self._check(cfg, plasticity, state)
         self.cfg = cfg
         self.state = state
         self.model = model
@@ -405,10 +417,30 @@ class Simulation:
         self.step_count = 0
         self.retry_count = 0
 
+    def _check(self, cfg: SimConfig, plasticity, state: ParticleState):
+        _check_supported(cfg, plasticity, state.batch is not None)
+
+    def _max_speed(self) -> float:
+        return float(torch.linalg.norm(self.state.v, dim=-1).max())
+
+    def _attempt(self, dt: float):
+        """One try of the step at dt from the current state: (new state,
+        stats, whether it is finite)."""
+        with self.timer.scope("advance_one_step"):
+            new_state, stats = advance_one_step(
+                self.state, dt, self.t, cfg=self.cfg, model=self.model,
+                colliders=self.colliders, plasticity=self.plasticity)
+        finite = (all(map(math.isfinite, _members(stats.cn_residual)))
+                  and bool(torch.isfinite(new_state.x).all()))
+        return new_state, stats, finite
+
+    def _accept(self, new_state: ParticleState):
+        self.state = new_state
+
     def compute_dt(self) -> float:
         """CFL dt: particles move at most cfl cells per step (with the
         velocity bound inflated by gravity over max_dt)."""
-        vmax = float(torch.linalg.norm(self.state.v, dim=-1).max())
+        vmax = self._max_speed()
         g = float(torch.linalg.norm(torch.tensor(self.cfg.gravity[: self.cfg.dim])))
         vmax = vmax + g * self.cfg.max_dt
         dt_cfl = self.cfg.cfl * self.cfg.dx / max(vmax, 1e-6)
@@ -419,15 +451,9 @@ class Simulation:
         non-finite, the step is retried from the saved state at halved dt,
         up to solver.dt_retries times."""
         dt = self.compute_dt() if dt is None else dt
-        prev_state = self.state
         attempt = 0
         while True:
-            with self.timer.scope("advance_one_step"):
-                new_state, stats = advance_one_step(
-                    prev_state, dt, self.t, cfg=self.cfg, model=self.model,
-                    colliders=self.colliders, plasticity=self.plasticity)
-            finite = (all(map(math.isfinite, _members(stats.cn_residual)))
-                      and bool(torch.isfinite(new_state.x).all()))
+            new_state, stats, finite = self._attempt(dt)
             converged = all(_members(stats.converged))
             if finite and (converged or attempt >= self.cfg.solver.dt_retries):
                 break
@@ -438,7 +464,7 @@ class Simulation:
             dt = dt * 0.5
             self.retry_count += 1
             self.metrics.log(event="dt_retry", attempt=attempt, dt=dt)
-        self.state = new_state
+        self._accept(new_state)
         self.t += dt
         self.step_count += 1
         self.metrics.log(step=self.step_count, t=self.t, dt=dt, **stats._asdict())

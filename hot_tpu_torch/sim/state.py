@@ -63,7 +63,7 @@ class ParticleState:
         for mat, flat in (("C", "Cf"), ("F", "Ff")):
             if mat in kw:
                 M = kw.pop(mat)
-                kw[flat] = M.reshape(M.shape[:-2] + (-1,))
+                kw[flat] = M.reshape(M.shape[:-2] + (M.shape[-2] * M.shape[-1],))
         return dataclasses.replace(self, **kw)
 
     def to_numpy(self) -> dict:

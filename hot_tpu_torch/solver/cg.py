@@ -19,6 +19,11 @@ stops on its own threshold, and a member that has stopped is frozen (its
 iterate kept by select, never multiplied by a mask, so a frozen member's
 0/0 cannot poison the others). The loop runs while any member is active and
 reads back one (B,) activity mask per iteration.
+
+On a slab of a rank mesh (``parallel``) every dot product is a partial sum
+over the rank's nodes: ``reduce`` (hot_tpu's ``axis_name``) sums it over the
+ranks, so every rank takes the same alpha, beta and iteration count. None
+(one grid) leaves the path as it was.
 """
 
 from __future__ import annotations
@@ -44,6 +49,14 @@ def dot(a, b, batched: bool = False):
     """a . b; per member (B,) over everything but the leading dimension for
     a batch."""
     return torch.sum(a * b, dim=tuple(range(1, a.ndim))) if batched else _dot(a, b)
+
+
+def reducing(batched: bool, reduce: Optional[Callable] = None):
+    """The dot product of a solve: per member for a batch, summed over the
+    ranks by `reduce` on a slab."""
+    if reduce is None:
+        return lambda a, b: dot(a, b, batched)
+    return lambda a, b: reduce(dot(a, b, batched))
 
 
 def per_member(s, like):
@@ -80,7 +93,7 @@ def _identity(x):
 
 def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,
              project: Optional[Callable] = None, tol=1e-3, abs_tol: float = 0.0,
-             max_iters: int = 200, active=None) -> CGResult:
+             max_iters: int = 200, active=None, reduce: Optional[Callable] = None) -> CGResult:
     """Solve A x = b; stop when |r|_2 <= max(tol |r0|_2, abs_tol).
 
     A batch (b (B, ...)) passes `active`, the (B,) mask of the members to
@@ -89,12 +102,13 @@ def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable]
     precondition = precondition or _identity
     project = project or _identity
     batched = active is not None
+    dot_ = reducing(batched, reduce)
     x = torch.zeros_like(b) if x0 is None else x0
     r = project(b - multiply(x))
     z = project(precondition(r))
     p = z
-    rz = dot(r, z, batched)
-    rnorm0 = torch.sqrt(dot(r, r, batched))
+    rz = dot_(r, z)
+    rnorm0 = torch.sqrt(dot_(r, r))
     threshold = torch.clamp(tol * rnorm0, min=abs_tol)
     rnorm = rnorm0
     going = rnorm > threshold
@@ -107,20 +121,20 @@ def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable]
         if not any_going(flags):
             break
         Ap = project(multiply(p))
-        pAp = dot(p, Ap, batched)
+        pAp = dot_(p, Ap)
         alpha = per_member(torch.where(
             pAp > 0, rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp),
             torch.zeros_like(pAp)), p)
         x = keep(going, x + alpha * p, x)
         r = keep(going, r - alpha * Ap, r)
         z = project(precondition(r))
-        rz_new = dot(r, z, batched)
+        rz_new = dot_(r, z)
         beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
         p = keep(going, z + per_member(beta, p) * p, p)
         rz = keep(going, rz_new, rz)
         k += 1
         iters = count(iters, flags)
-        rnorm = keep(going, torch.sqrt(dot(r, r, batched)), rnorm)
+        rnorm = keep(going, torch.sqrt(dot_(r, r)), rnorm)
         going = going & (rnorm > threshold)
     converged = rnorm <= threshold
     return CGResult(x=x, iters=iters, residual=rnorm, residual0=rnorm0,
@@ -129,7 +143,8 @@ def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable]
 
 def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,
                  project: Optional[Callable] = None, tol=1e-3, abs_tol: float = 0.0,
-                 max_iters: int = 200, active=None) -> CGResult:
+                 max_iters: int = 200, active=None,
+                 reduce: Optional[Callable] = None) -> CGResult:
     """Preconditioned conjugate residual (MINRES-equivalent for symmetric A,
     so it takes a mildly indefinite operator, e.g. the Hessian without SPD
     projection), `precondition` SPD:
@@ -146,13 +161,14 @@ def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Calla
     precondition = precondition or _identity
     project = project or _identity
     batched = active is not None
+    dot_ = reducing(batched, reduce)
     x = torch.zeros_like(b) if x0 is None else x0
     r = project(b - multiply(x))
     z = project(precondition(r))
     Az = project(multiply(z))
     p, Ap = z, Az
-    zAz = dot(z, Az, batched)
-    rnorm0 = torch.sqrt(dot(r, r, batched))
+    zAz = dot_(z, Az)
+    rnorm0 = torch.sqrt(dot_(r, r))
     threshold = torch.clamp(tol * rnorm0, min=abs_tol)
     rnorm = rnorm0
     going = rnorm > threshold
@@ -164,7 +180,7 @@ def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Calla
         flags = going.tolist()
         if not any_going(flags):
             break
-        ApMAp = dot(Ap, project(precondition(Ap)), batched)
+        ApMAp = dot_(Ap, project(precondition(Ap)))
         alpha = per_member(torch.where(
             ApMAp.abs() > 0, zAz / torch.where(ApMAp == 0, torch.ones_like(ApMAp), ApMAp),
             torch.zeros_like(ApMAp)), p)
@@ -172,14 +188,14 @@ def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Calla
         r = keep(going, r - alpha * Ap, r)
         z = project(precondition(r))
         Az = project(multiply(z))
-        zAz_new = dot(z, Az, batched)
+        zAz_new = dot_(z, Az)
         beta = per_member(zAz_new / torch.where(zAz == 0, torch.ones_like(zAz), zAz), p)
         p = keep(going, z + beta * p, p)
         Ap = keep(going, Az + beta * Ap, Ap)
         zAz = keep(going, zAz_new, zAz)
         k += 1
         iters = count(iters, flags)
-        rnorm = keep(going, torch.sqrt(dot(r, r, batched)), rnorm)
+        rnorm = keep(going, torch.sqrt(dot_(r, r)), rnorm)
         going = going & (rnorm > threshold)
     converged = rnorm <= threshold
     return CGResult(x=x, iters=iters, residual=rnorm, residual0=rnorm0,

@@ -24,8 +24,8 @@ from typing import Callable, List, NamedTuple
 
 import torch
 
-from hot_tpu_torch.solver.cg import (any_going, cg_solve, count, dot, keep, minres_solve,
-                                     per_member)
+from hot_tpu_torch.solver.cg import (any_going, cg_solve, count, keep, minres_solve,
+                                     per_member, reducing)
 
 SOLVERS = {"cg": cg_solve, "minres": minres_solve}
 
@@ -53,7 +53,7 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
                  linear_solver: str = "cg", energy: Callable = None,
                  line_search: bool = False, ls_max_backtracks: int = 8,
                  precond_refresh: str = "newton", refresh_preconditioner: Callable = None,
-                 axis_name: str = None) -> NewtonResult:
+                 reduce: Callable = None) -> NewtonResult:
     """Run the inexact Newton loop.
 
     linearize(v) -> (r, hess) evaluates both at once; without it,
@@ -63,13 +63,14 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     a base is built once at v0 and each iterate refreshes part of it (the
     lagged Galerkin chain of MultigridConfig.rap_refresh="lagged").
     line_search needs energy(v), the objective the residual is the gradient of.
+    reduce (hot_tpu's axis_name) sums a rank's partial dot products over the
+    ranks of a slab decomposition; cn_norm and energy then return the
+    global values, so every rank takes the same iterations.
     """
     if linear_solver not in SOLVERS:
         raise ValueError(f"unknown linear_solver '{linear_solver}'")
     if line_search and energy is None:
         raise ValueError("line_search needs the energy callable")
-    if axis_name is not None:
-        raise NotImplementedError("distributed Newton is not ported yet")
     if precond_refresh not in ("newton", "step"):
         raise ValueError(f"unknown precond_refresh '{precond_refresh}'")
     if linearize is None:
@@ -80,6 +81,7 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     cn0 = cn_norm(r)
     cn = cn0
     batch = cn0.shape[0] if cn0.ndim else None
+    dot_ = reducing(batch is not None, reduce)
     partial = refresh_preconditioner is not None and precond_refresh == "newton"
     frozen = build_preconditioner(hess) if precond_refresh == "step" or partial else None
     history = [cn0]
@@ -87,7 +89,7 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     k = 0
     iters, cg_total, backtracks = ([0] * batch for _ in range(3)) if batch else (0, 0, 0)
     while k < max_newton:
-        going = (cn > cn_eps) & (torch.sqrt(dot(r, r, batch is not None)) > abs_tol)
+        going = (cn > cn_eps) & (torch.sqrt(dot_(r, r)) > abs_tol)
         flags = going.tolist()
         if not any_going(flags):
             break
@@ -103,11 +105,11 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
             eta = cg_tol
         res = solve(lambda w: multiply(hess, w), -r,
                     precondition=lambda z: precondition(pstate, z),
-                    project=project, tol=eta, max_iters=max_cg,
+                    project=project, tol=eta, max_iters=max_cg, reduce=reduce,
                     **({} if batch is None else {"active": going}))
         step = res.x
         if line_search:
-            E0, slope = energy(v), dot(r, res.x, batch is not None)
+            E0, slope = energy(v), dot_(r, res.x)
             alpha = torch.ones_like(cn)
             trying = going
             for _ in range(ls_max_backtracks):

@@ -85,8 +85,9 @@ class SolverConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh partitioning of the grid. Multi-device is not ported: a
-    shape other than (1,) raises NotImplementedError."""
+    """Device-mesh partitioning of the grid: a shape other than (1,) runs the
+    sharded step (``parallel.ShardedSimulation``; one axis "x" over grid
+    axis 0, shape (-1,) spans the ranks)."""
 
     axes: Tuple[str, ...] = ("x",)
     shape: Tuple[int, ...] = (1,)

@@ -72,7 +72,9 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, hot_tpu_torch, hot_tpu_torch.sim, hot_tpu_torch.scenes, "
             "hot_tpu_torch.cli, hot_tpu_torch.ops.fused_apply, hot_tpu_torch.ops.fused_linearize, "
             "hot_tpu_torch.io.mesh, hot_tpu_torch.models.plasticity, hot_tpu_torch.sim.analysis, "
-            "hot_tpu_torch.sim.difftest; "
+            "hot_tpu_torch.sim.difftest, hot_tpu_torch.parallel.sharded_step, "
+            "hot_tpu_torch.parallel.sharded_mg, hot_tpu_torch.parallel.sharded, "
+            "hot_tpu_torch.parallel.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hot_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=PKG.parent, timeout=120)

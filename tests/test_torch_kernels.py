@@ -154,6 +154,38 @@ def test_dispatch_is_by_device(rng):
                         to.F_soa, th.U, th.V, th.A, th.b_plus, th.b_minus, to.V0, DT)
 
 
+@pytest.mark.parametrize("n", [0, 5])
+def test_launches_count_only_real_launches(monkeypatch, n):
+    """A wrapper counts a launch only where its C entry launches one: not
+    for a call with no particle or no row (a rank holding no particle),
+    for which the C entries launch nothing. The library is a stand-in that
+    launches nothing, so this runs on the CPU."""
+    from types import SimpleNamespace
+
+    from hot_tpu_torch.ops import bsr_spmv as tsp
+    from hot_tpu_torch.ops import cuda_lib
+
+    fake = SimpleNamespace(hot_fused_apply=lambda *a: 0, hot_fused_linearize=lambda *a: 0,
+                           hot_bsr_spmv=lambda *a: 0)
+    monkeypatch.setattr(cuda_lib, "load", lambda: fake)
+    monkeypatch.setattr(cuda_lib, "stream_ptr", lambda device: 0)
+    f64, res = torch.float64, (8, 8)
+    x = torch.full((2, n), 0.5, dtype=f64)
+    F = torch.eye(2, dtype=f64).reshape(4, 1).repeat(1, n)
+    ctx = [torch.zeros((4, n), dtype=f64) for _ in range(3)]
+    pairs = [torch.zeros((1, n), dtype=f64) for _ in range(2)]
+    per_particle = [torch.ones(n, dtype=f64) for _ in range(3)]
+    grid = torch.zeros((64, 2), dtype=f64)
+    before = (tfa.launches, tfl.launches, tsp.launches)
+    tfa.fused_apply_cuda(grid, x, 0.125, res, F, *ctx, *pairs, per_particle[0], DT)
+    tfl.fused_linearize_cuda(grid, x, 0.125, res, F, *per_particle, DT,
+                             SimpleNamespace(name="fixed_corotated"))
+    tsp.bsr_spmv_cuda(torch.zeros((n, 3, 2, 2), dtype=f64),
+                      torch.zeros((n, 3), dtype=torch.int32), grid)
+    after = (tfa.launches, tfl.launches, tsp.launches)
+    assert [b - a for a, b in zip(before, after)] == [int(n > 0)] * 3
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

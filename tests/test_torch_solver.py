@@ -210,27 +210,30 @@ def test_newton_matches_hot_tpu(adaptive_forcing, precond_refresh):
 
 @pytest.mark.parametrize("option", [dict(linear_solver="gmres"), dict(line_search=True),
                                     dict(line_search=True, precond_refresh="step"),
-                                    dict(axis_name="x")])
+                                    dict(precond_refresh="never")])
 def test_unported_newton_options_raise(rng, option):
-    """Distributed Newton is not ported; an unknown linear solver, and line
-    search without an energy, are refused."""
+    """An unknown linear solver or preconditioner refresh, and line search
+    without an energy, are refused."""
     with pytest.raises((NotImplementedError, ValueError)):
         t_newton(**_newton_problem(rng, torch, torch.from_numpy), **option)
 
 
 @pytest.mark.parametrize("overrides", [
-    {"mesh.shape": (-1,)}, {"transfer_kernel": "cubic", "solver.matrix_free": False},
+    {"transfer_kernel": "cubic", "solver.preconditioner": "multigrid",
+     "solver.multigrid.coarse_solver": "direct"},
+    {"transfer_kernel": "cubic", "solver.matrix_free": False},
     {"solver.integrator": "explicit", "transfer_kernel": "cubic", "solver.matrix_free": False},
-    {"solver.overlap_halo": True},
+    {"grid_backend": "sparse", "transfer_kernel": "cubic", "solver.integrator": "explicit"},
     {"transfer_kernel": "cubic", "solver.preconditioner": "multigrid",
      "solver.multigrid.assembled": True},
     {"grid_backend": "sparse", "transfer_kernel": "cubic"},
     {"grid_backend": "sparse", "solver.matrix_free": False}])
 def test_unported_configs_raise(overrides):
-    """A device mesh and the sharded step's halo overlap (multi-GPU is not
-    ported), and, as in hot_tpu, operators assembled into the quadratic BSR
-    under cubic transfers (for every integrator), cubic transfers on the
-    sparse grid and the explicit outer BSR on the sparse grid are refused."""
+    """As in hot_tpu, operators assembled into the quadratic BSR under cubic
+    transfers (for every integrator; the port's direct coarse solve too),
+    cubic transfers on the sparse grid and the explicit outer BSR on the
+    sparse grid are refused. (A device mesh runs through
+    parallel.ShardedSimulation: tests/test_torch_sharded_step.py.)"""
     scene = tbuild("block_drop_2d", device="cpu", res=16)
     cfg = t_overrides(scene["cfg"], overrides)
     with pytest.raises(NotImplementedError):

@@ -1,0 +1,7 @@
+"""Share (%) of its roofline that the `bsr_spmv` kernel reaches in the traced
+segments: the mean least time of its launches (portbench/roofline.py, from
+each launch's shapes) over its mean device time per launch (profiler)."""
+
+
+def read(trace):
+    return trace.roofline_share("bsr_spmv")

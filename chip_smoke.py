@@ -469,7 +469,7 @@ class WindowStats:
 
         self.mods = {"fused_apply": fa, "fused_linearize": fl}
         self.bufs = {k: fa.new_window_stats("cuda") for k in self.mods}
-        self.launches = {k: m.launches for k, m in self.mods.items()}
+        self.launches = launch_counts()
         for k, m in self.mods.items():
             m.window_stats = self.bufs[k]
         return self
@@ -484,7 +484,7 @@ class WindowStats:
         out = {}
         for k, m in self.mods.items():
             st = fa.read_window_stats(self.bufs[k])
-            launches = m.launches - self.launches[k]
+            launches = launch_counts()[k] - self.launches[k]
             blocks = max(st["blocks"], 1)
             out[k] = dict(launches=launches, blocks=st["blocks"],
                           overflow_share=st["overflow_blocks"] / blocks,
@@ -797,17 +797,19 @@ class Attempts:
                 for dt, s in self.stats if id(s) not in kept]
 
 
+def launch_counts():
+    """Each kernel's launches so far (the tracer's counters)."""
+    from hot_tpu_torch.utils.timing import TRACER
+
+    return {k: TRACER.counts["launches." + k] for k in ("fused_apply", "fused_linearize",
+                                                        "bsr_spmv")}
+
+
 def counted(fn):
     """(fn(), each kernel's launches during it)."""
-    from hot_tpu_torch.ops import bsr_spmv as sp
-    from hot_tpu_torch.ops import fused_apply as fa
-    from hot_tpu_torch.ops import fused_linearize as fl
-
-    mods = {"fused_apply": fa, "fused_linearize": fl, "bsr_spmv": sp}
-    for m in mods.values():
-        m.launches = 0
+    before = launch_counts()
     out = fn()
-    return out, {k: m.launches for k, m in mods.items()}
+    return out, {k: v - before[k] for k, v in launch_counts().items()}
 
 
 def mg_spmv_launches(mgc, newton, cg, first_assembled=0):
@@ -1226,12 +1228,12 @@ def check_batch_kernels(c, members, timing):
     from hot_tpu_torch.ops import fused_linearize as fl
 
     B, dtype = len(members), c["v"].dtype
-    lin0, app0 = fl.launches, fa.launches
+    before = launch_counts()
     got = fl.fused_linearize_cuda(*lin_args(c))
     want = fl.fused_linearize_plain(*lin_args(c))
     apply = apply_args(c, want[1:])
     got_df = fa.fused_apply_cuda(*apply)
-    launches = {"fused_linearize": fl.launches - lin0, "fused_apply": fa.launches - app0}
+    launches = {k: launch_counts()[k] - before[k] for k in ("fused_linearize", "fused_apply")}
     want_df = fa.fused_apply_plain(*apply)
     alone = []
     for b, m in enumerate(members):
@@ -1531,12 +1533,12 @@ def check_batch_tiled_kernels(c, members, timing):
 
     B, dtype, tg = len(members), c["v"].dtype, c["tgrid"]
     lin = lin_args(c) + (tg,)
-    lin0, app0 = fl.launches, fa.launches
+    before = launch_counts()
     got = fl.fused_linearize_cuda(*lin)
     want = fl.fused_linearize_plain(*lin)
     apply = (c["w"],) + apply_args(c, want[1:])[1:] + (tg,)
     got_df = fa.fused_apply_cuda(*apply)
-    launches = {"fused_linearize": fl.launches - lin0, "fused_apply": fa.launches - app0}
+    launches = {k: launch_counts()[k] - before[k] for k in ("fused_linearize", "fused_apply")}
     want_df = fa.fused_apply_plain(*apply)
     names = ("f", "U", "V", "A", "b_plus", "b_minus", "df")
     errs = {}
@@ -2162,10 +2164,8 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    from hot_tpu_torch.ops import bsr_spmv as sp
     from hot_tpu_torch.ops import cuda_lib
     from hot_tpu_torch.ops import fused_apply as fa
-    from hot_tpu_torch.ops import fused_linearize as fl
     from hot_tpu_torch.scenes import SCENES, build_scene, stress_state
     from hot_tpu_torch.sim import Simulation
     from hot_tpu_torch.sim.state import FIELDS, state_from_numpy
@@ -2293,11 +2293,8 @@ def main(argv=None):
     # ---- 4 the main path at 64^3 (block-Jacobi)
     scene = build_scene("twisting_bar_3d", device="cuda", res=64, ppc=8)
     sim = Simulation(scene["cfg"], scene["state"], scene["model"], scene["colliders"])
-    fa.launches = fl.launches = sp.launches = 0
     with WindowStats() as ws:
-        stats, seconds = run_steps(sim, 12, DT)
-    launches = {"fused_apply": fa.launches, "fused_linearize": fl.launches,
-                "bsr_spmv": sp.launches}
+        (stats, seconds), launches = counted(lambda: run_steps(sim, 12, DT))
     emit("windows", path="main, 64^3 block-Jacobi", threads=fa.BLOCK_THREADS,
          window_nodes=fa.WINDOW_NODES, **ws.read())
     newton = [s.newton_iters for s in stats]
@@ -2305,7 +2302,7 @@ def main(argv=None):
     emit("main", particles=sim.state.n, steps=len(stats), seconds=seconds,
          steps_per_s=len(stats) / seconds, newton=newton, cg=cg,
          max_velocity=[s.max_velocity for s in stats], launches=launches,
-         retries=sim.retry_count, step_s=sim.timer.snapshot())
+         retries=sim.retry_count)
     assert bool(torch.isfinite(sim.state.x).all() and torch.isfinite(sim.state.Ff).all())
     assert all(s.converged for s in stats) and sim.retry_count == 0, stats
     assert all(k > 0 for k in newton[6:]), newton
@@ -2322,11 +2319,8 @@ def main(argv=None):
     cfg3 = config3(scene["cfg"])
     mgc = cfg3.solver.multigrid
     sim = Simulation(cfg3, scene["state"], scene["model"], scene["colliders"])
-    fa.launches = fl.launches = sp.launches = 0
     with BuildTimer(mg_mod) as bt:
-        stats, seconds = run_steps(sim, 12, DT)
-    mg_launches = {"fused_apply": fa.launches, "fused_linearize": fl.launches,
-                   "bsr_spmv": sp.launches}
+        (stats, seconds), mg_launches = counted(lambda: run_steps(sim, 12, DT))
     newton = [s.newton_iters for s in stats]
     cg = [s.cg_iters for s in stats]
     per_build, per_vcycle, want_spmv = mg_spmv_launches(mgc, newton, cg)
@@ -2585,11 +2579,8 @@ def main(argv=None):
     cfg = config_from_overrides(scene["cfg"], {"transfer_kernel": "cubic"})
     sim = Simulation(cfg, scene["state"], scene["model"], scene["colliders"])
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fl.launches = sp.launches = 0
     with WindowStats() as ws:
-        stats, seconds = run_steps(sim, 12, DT)
-    cubic_launches = {"fused_apply": fa.launches, "fused_linearize": fl.launches,
-                      "bsr_spmv": sp.launches}
+        (stats, seconds), cubic_launches = counted(lambda: run_steps(sim, 12, DT))
     emit("windows", path="cubic, 64^3 block-Jacobi",
          launch_config=fa.launch_config(3, 4, 4), **ws.read())
     row = step_record(sim, stats, seconds)

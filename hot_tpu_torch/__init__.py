@@ -26,7 +26,7 @@ counterpart is easy to find:
             conservation queries and the finite-difference check
   io        checkpoints, render frames, OBJ meshes and sampling inside them
   scenes    hot_tpu's eleven scenes and their procedural mesh asset
-  utils     config tree, metrics, timers
+  utils     config tree, metrics, the tracer (spans and counters)
 """
 
 __version__ = "0.1.0"

@@ -39,7 +39,16 @@ def worker(root: str, cubic: bool):
     from hot_tpu_torch.ops import fused_linearize as fl
     from hot_tpu_torch.scenes import build_scene
     from hot_tpu_torch.sim import Simulation
+    from hot_tpu_torch.utils import timing
     from hot_tpu_torch.utils.config import config_from_overrides
+
+    def launches():
+        """The particle kernels' launches so far: the tracer's counters, or
+        the module counters of a checkout from before the tracer."""
+        tracer = getattr(timing, "TRACER", None)
+        if tracer is None:
+            return {"fused_apply": fa.launches, "fused_linearize": fl.launches}
+        return {k: tracer.counts["launches." + k] for k in ("fused_apply", "fused_linearize")}
 
     assert Path(fa.__file__).resolve().is_relative_to(Path(root).resolve()), fa.__file__
     cuda_lib.load()
@@ -49,7 +58,7 @@ def worker(root: str, cubic: bool):
         cfg = config_from_overrides(scene["cfg"], overrides)
         sim = Simulation(cfg, scene["state"], scene["model"], scene["colliders"])
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = fl.launches = 0
+        before = launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stats = [sim.step(DT) for _ in range(STEPS)]
@@ -58,7 +67,7 @@ def worker(root: str, cubic: bool):
         assert all(s.converged for s in stats) and sim.retry_count == 0, stats
         return dict(steps=STEPS, seconds=seconds, steps_per_s=STEPS / seconds,
                     newton=[s.newton_iters for s in stats], cg=[s.cg_iters for s in stats],
-                    launches={"fused_apply": fa.launches, "fused_linearize": fl.launches},
+                    launches={k: v - before[k] for k, v in launches().items()},
                     max_memory_allocated=torch.cuda.max_memory_allocated())
 
     paths = {"quadratic": {}}

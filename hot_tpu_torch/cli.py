@@ -6,7 +6,9 @@
 
 Runs on the GPU (``--device cuda``, the default); it refuses to start when
 no GPU is present unless ``--device cpu`` is given. Writes config.json,
-metrics.jsonl (one record per step), timers.txt, one render frame per frame
+metrics.jsonl (one record per step), timers.txt (the tracer's spans per
+name: count, total, self and device ms, and its counters; the spans are
+folded into these totals after every frame), one render frame per frame
 (``--frame-format``: bgeo, the default, ply or npz; frame_NNNNN.<format>)
 and a checkpoint every ``--checkpoint-every`` frames (ckpt_NNNNN.npz) into
 the run directory. ``--resume ckpt_NNNNN.npz`` continues a run from a
@@ -89,6 +91,7 @@ def main(argv=None):
     from hot_tpu_torch.sim import Simulation
     from hot_tpu_torch.utils.config import config_from_overrides
     from hot_tpu_torch.utils.metrics import MetricsLogger
+    from hot_tpu_torch.utils.timing import TRACER
 
     if args.list_scenes:
         for name in sorted(SCENES):
@@ -151,10 +154,12 @@ def main(argv=None):
               f"device={device} model={model.name} precond={cfg.solver.preconditioner}"
               f"{mesh_note}", flush=True)
 
+    TRACER.enable()
     try:
         for frame in range(start_frame, args.frames):
             t0 = time.perf_counter()
             sim.advance_frame()
+            TRACER.fold()
             state = sim.state          # on a mesh, every rank takes part in the gather
             if rank == 0:
                 save_frame(os.path.join(out_dir, f"frame_{frame:05d}.{args.frame_format}"),
@@ -172,8 +177,9 @@ def main(argv=None):
                 break
         if rank == 0:
             with open(os.path.join(out_dir, "timers.txt"), "w") as fh:
-                fh.write(sim.timer.report())
+                fh.write(TRACER.report())
     finally:
+        TRACER.disable()
         metrics.close()
     return 0
 

@@ -44,6 +44,7 @@ import torch
 
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bspline import quadratic_bspline_weights, stencil_offsets, tensor_weights
+from hot_tpu_torch.utils.timing import h2d, synced
 
 TILE = 4
 # node position of the dump row (and of nothing else): far outside the
@@ -110,8 +111,8 @@ def _tile_strides(tile_res, device):
 
 
 def _local_strides(dim: int, tile: int, device):
-    return torch.tensor([tile ** (dim - 1 - a) for a in range(dim)], dtype=torch.long,
-                        device=device)
+    return h2d(torch.tensor([tile ** (dim - 1 - a) for a in range(dim)], dtype=torch.long,
+                            device=device))
 
 
 def build_tile_grid(x, dx: float, res: Tuple[int, ...], capacity: int,
@@ -131,7 +132,7 @@ def build_tile_grid(x, dx: float, res: Tuple[int, ...], capacity: int,
     res = tuple(int(r) for r in res)
     device = x.device
     tile_res = tuple(-(-r // tile) for r in res)
-    hi = torch.tensor(res, dtype=torch.long, device=device) - 1
+    hi = h2d(torch.tensor(res, dtype=torch.long, device=device)) - 1
     base, _, _ = quadratic_bspline_weights(x, dx)
     base = torch.minimum(base.clamp(min=0), hi)
     corners = (base, torch.minimum(base + 2, hi))
@@ -140,7 +141,7 @@ def build_tile_grid(x, dx: float, res: Tuple[int, ...], capacity: int,
     for mask in range(2 ** dim):
         corner = torch.stack([corners[(mask >> a) & 1][:, a] for a in range(dim)], dim=-1)
         cand.append(((corner // tile) * strides).sum(-1))
-    tile_ids = torch.unique(torch.cat(cand))
+    tile_ids = synced(torch.unique(torch.cat(cand)))
     n_active = int(tile_ids.shape[0])
     if n_active > capacity:
         raise RuntimeError(f"sparse tile capacity exceeded ({n_active} of {capacity} tiles); "
@@ -196,7 +197,7 @@ def sparse_stencil(x, dx: float, grid: TileGrid) -> transfer.Stencil:
     base, w, dw = quadratic_bspline_weights(x, dx)
     wn, gwn = tensor_weights(w, dw)
     offs = stencil_offsets(dim, 3, device=x.device)
-    hi = torch.tensor(grid.res, dtype=torch.long, device=x.device) - 1
+    hi = h2d(torch.tensor(grid.res, dtype=torch.long, device=x.device)) - 1
     coords = torch.minimum((base[..., None, :] + offs).clamp(min=0), hi)
     rel = coords.to(x.dtype) * dx - x[..., None, :]
     node_ids = compact_node_id(grid, coords)
@@ -209,7 +210,7 @@ def slot_nodes(grid: TileGrid):
     """(n_cnodes,) bool, a batch's (B, n_cnodes): the nodes of a member's
     own active tiles (neither padding nor the dump row)."""
     ids = torch.arange(grid.n_cnodes, device=grid.lookup.device)
-    counts = torch.tensor(grid.member_tiles, device=ids.device)[:, None]
+    counts = h2d(torch.tensor(grid.member_tiles, device=ids.device))[:, None]
     mask = ids < counts * grid.tile_nodes
     return mask if grid.batch is not None else mask[0]
 
@@ -238,8 +239,8 @@ def compact_to_dense(grid: TileGrid, v, fill=0.0):
                             for b in range(grid.batch)])
     ids = torch.arange(grid.dump, device=v.device)
     coords = compact_node_coords(grid, ids)
-    hi = torch.tensor(grid.res, dtype=torch.long, device=v.device)
-    inside = ((coords < hi).all(-1)).nonzero().reshape(-1)   # tiles may overhang the grid
+    hi = h2d(torch.tensor(grid.res, dtype=torch.long, device=v.device))
+    inside = synced(((coords < hi).all(-1)).nonzero()).reshape(-1)   # tiles overhang the grid
     dense = (coords[inside] * transfer._row_major_strides(grid.res, v.device)).sum(-1)
     out = torch.full((transfer.n_nodes_of(grid.res),) + tuple(v.shape[1:]), fill,
                      dtype=v.dtype, device=v.device)

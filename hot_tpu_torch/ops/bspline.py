@@ -18,6 +18,8 @@ import itertools
 
 import torch
 
+from hot_tpu_torch.utils.timing import h2d
+
 
 def quadratic_kernel_1d(u):
     """N(t) at the 3 stencil offsets for u = x/dx - base in [0.5, 1.5)."""
@@ -103,7 +105,7 @@ def apic_d_inv_factor(kernel: str = "quadratic") -> float:
 def stencil_offsets(dim: int, width: int = 3, device="cpu"):
     """All width^dim integer offsets of the stencil, row-major, (width^dim, dim)."""
     offs = list(itertools.product(range(width), repeat=dim))
-    return torch.tensor(offs, dtype=torch.long, device=device)
+    return h2d(torch.tensor(offs, dtype=torch.long, device=device))
 
 
 def tensor_weights(w, dw):

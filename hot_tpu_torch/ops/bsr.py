@@ -47,6 +47,7 @@ import torch
 from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bsr_spmv import bsr_spmv
+from hot_tpu_torch.utils.timing import h2d, synced
 
 # particles per assembly chunk: bounds the (chunk, 3^d, 3^d, d, d) block
 # tensor at 2^26 values (the unchunked one is 10.5 GB in fp32 at 128^3)
@@ -129,7 +130,7 @@ def coords_to_nodes(res, tgrid, coords, member=None):
     """Node ids of integer coords (..., dim): -1 outside the grid and, on a
     tile grid, in an inactive tile (member-local ids on a batch's tile grid,
     as node_coords)."""
-    res_t = torch.tensor(res, dtype=torch.long, device=coords.device)
+    res_t = h2d(torch.tensor(res, dtype=torch.long, device=coords.device))
     inside = ((coords >= 0) & (coords < res_t)).all(-1)
     clipped = torch.minimum(coords.clamp(min=0), res_t - 1)
     if tgrid is None:
@@ -153,10 +154,10 @@ def structure(active, res: Tuple[int, ...], half: int = 2, dtype=torch.float32,
     act = active.reshape(batch or 1, -1)
     B, n = act.shape
     counts = act.sum(1)
-    R = int(counts.max()) if B else 0
+    R = synced(int(counts.max())) if B else 0
     if B * R >= 2 ** 31:
         raise ValueError(f"{B} members of {R} rows overflow the int32 column index")
-    flat = torch.nonzero(act.reshape(-1)).reshape(-1)
+    flat = synced(torch.nonzero(act.reshape(-1))).reshape(-1)
     member = torch.div(flat, n, rounding_mode="floor")
     prow = member * R + torch.arange(flat.shape[0], device=device) - (
         torch.cumsum(counts, 0) - counts)[member]
@@ -231,7 +232,7 @@ def assemble_hessian(mat: BsrMatrix, stencil: transfer.Stencil, F_n, ctx: cm.Hes
         rows = mat.row_of[stencil.node_ids[sl]]                       # (c, s_j)
         flat_id = rows[:, :, None] * K + off_id
         ok = (rows >= 0)[:, :, None].expand_as(flat_id)
-        vals.index_add_(0, flat_id[ok], blocks[ok])
+        vals.index_add_(0, synced(flat_id[ok]), synced(blocks[ok]))
     return mat.replace(vals=_finalize_vals(mat, vals.reshape(mat.n_rows, K, dim, dim), grid_m))
 
 

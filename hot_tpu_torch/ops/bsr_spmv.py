@@ -15,8 +15,8 @@ On the H100 the kernel is bound by bytes (vals and col_row, each read once;
 see the source's note).
 
 Dispatch is by device: CPU tensors take ``bsr_spmv_plain``; CUDA tensors
-launch the kernel or raise. ``launches`` counts kernel launches
-(none for a matrix with no rows).
+launch the kernel or raise. The tracer's counter ``launches.bsr_spmv``
+(``utils.timing``) counts kernel launches (none for a matrix with no rows).
 """
 
 from __future__ import annotations
@@ -24,8 +24,7 @@ from __future__ import annotations
 import torch
 
 from hot_tpu_torch.ops import cuda_lib
-
-launches = 0
+from hot_tpu_torch.utils.timing import count
 
 
 def bsr_spmv_plain(vals, col_row, x):
@@ -38,7 +37,6 @@ def bsr_spmv_plain(vals, col_row, x):
 
 def bsr_spmv_cuda(vals, col_row, x):
     """Launch the CUDA kernel (CUDA tensors only)."""
-    global launches
     R, K, d = vals.shape[0], vals.shape[1], x.shape[-1]
     if d not in (2, 3):
         raise ValueError(f"bsr_spmv takes d in (2, 3), got {d}")
@@ -49,7 +47,7 @@ def bsr_spmv_cuda(vals, col_row, x):
     rc = lib.hot_bsr_spmv(cuda_lib.dtype_code(x), d, vals.data_ptr(), col_row.data_ptr(),
                           x.data_ptr(), y.data_ptr(), R, K, cuda_lib.stream_ptr(x.device))
     cuda_lib.check(rc, "bsr_spmv")
-    launches += R > 0          # the C entry launches nothing for no rows
+    count("launches.bsr_spmv", int(R > 0))   # the C entry launches nothing for no rows
     return y
 
 

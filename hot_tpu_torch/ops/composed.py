@@ -46,6 +46,7 @@ from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.ops import bsr as bsr_mod
 from hot_tpu_torch.ops.bspline import quadratic_bspline_weights, quadratic_kernel_1d, tensor_weights
 from hot_tpu_torch.ops.svd import eigh_sym
+from hot_tpu_torch.utils.timing import h2d, synced
 
 # working set of one chunk of composed cells (mode vectors, Gram blocks and
 # their scatter indices), in bytes
@@ -134,10 +135,10 @@ def _cell_chunks(keys, cell_bytes, budget: int = CHUNK_BYTES):
     if n == 0:
         return
     order = torch.argsort(keys, stable=True)
-    cell_keys, counts = torch.unique_consecutive(keys[order], return_counts=True)
+    cell_keys, counts = synced(torch.unique_consecutive(keys[order], return_counts=True))
     starts = torch.cumsum(counts, 0) - counts
     by_size = torch.argsort(counts, descending=True, stable=True)
-    sizes = counts[by_size].tolist()
+    sizes = synced(counts[by_size].tolist())
     i = 0
     while i < len(sizes):
         cap = sizes[i]
@@ -159,7 +160,8 @@ def _offset_ids(dim: int, width: int, half: int, device):
     off_id = np.zeros(rel.shape[:2], np.int64)
     for a in range(dim):
         off_id = off_id * (2 * half + 1) + rel[:, :, a]
-    return (torch.as_tensor(offs, device=device), torch.as_tensor(off_id, device=device))
+    return (h2d(torch.as_tensor(offs, device=device)),
+            h2d(torch.as_tensor(off_id, device=device)))
 
 
 def _ext_size(res_L) -> int:
@@ -188,7 +190,7 @@ def _scatter_cells(out, mat: bsr_mod.BsrMatrix, rows, off_id, blocks):
     (row of node j, column of node i relative to j)."""
     flat = rows[:, :, None] * mat.K + off_id[None]
     ok = (rows >= 0)[:, :, None].expand_as(flat)
-    out.index_add_(0, flat[ok], blocks[ok])
+    out.index_add_(0, synced(flat[ok]), synced(blocks[ok]))
 
 
 def mode_vectors(gwn, F_n, ctx: cm.HessianContext, V0, dt: float):

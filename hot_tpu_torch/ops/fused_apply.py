@@ -47,8 +47,9 @@ MAX_BATCH); the plain version stacks the members' grids end to end
 slots) each member's blocks read its own row of the (B, n_tiles) lookup.
 
 Dispatch is by device: CPU tensors take ``fused_apply_plain``; CUDA tensors
-launch the kernel or raise. ``launches`` counts kernel launches, one per
-call, whatever the batch, none for a call with no particle.
+launch the kernel or raise. The tracer's counter ``launches.fused_apply``
+(``utils.timing``) counts kernel launches, one per call, whatever the
+batch, none for a call with no particle.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.ops import cuda_lib
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bspline import kernel_width
+from hot_tpu_torch.utils.timing import count
 
 # threads per block, and the largest node box a block takes through shared
 # memory: 256 threads and 1536 nodes reserve 110 KB a block in fp32 3D
@@ -79,7 +81,6 @@ N_HIST = 24
 # the most members a launch takes: the launch grid's y extent (gridDim.y)
 MAX_BATCH = 65535
 
-launches = 0
 window_stats = None
 
 
@@ -220,7 +221,6 @@ def lookup_args(tgrid):
 def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
                      kernel: str = "quadratic", tgrid=None, threads=None, window_nodes=None):
     """Launch the CUDA kernel (CUDA tensors only), once for the whole batch."""
-    global launches
     params = dict(F=F, U=U, V=V, A=A, b_plus=b_plus, b_minus=b_minus, V0=V0)
     cuda_lib.check_inputs(w, param_specs(w, x, res, tgrid, kernel, **params))
     width = kernel_width(kernel)
@@ -234,7 +234,8 @@ def fused_apply_cuda(w, x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt,
         *launch_args(w, width, threads, window_nodes, window_stats),
         cuda_lib.stream_ptr(w.device))
     cuda_lib.check(rc, "fused_apply")
-    launches += x.shape[-1] > 0    # the C entry launches nothing for no particles
+    # the C entry launches nothing for no particles
+    count("launches.fused_apply", int(x.shape[-1] > 0))
     return df
 
 

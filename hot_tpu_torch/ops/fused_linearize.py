@@ -32,7 +32,8 @@ A batch passes every argument with a leading member dimension, as in
 launch.
 
 Dispatch is by device: CPU tensors take ``fused_linearize_plain``; CUDA
-tensors launch the kernel or raise. ``launches`` counts kernel launches, one
+tensors launch the kernel or raise. The tracer's counter
+``launches.fused_linearize`` (``utils.timing``) counts kernel launches, one
 per call with particles; ``window_stats`` works as in ``ops.fused_apply``.
 """
 
@@ -46,10 +47,10 @@ from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.bspline import kernel_width
 from hot_tpu_torch.ops.fused_apply import (aos_mat, batch_of, launch_args, lookup_args,
                                            param_specs, soa, stencil_of)
+from hot_tpu_torch.utils.timing import count
 
 MODEL_CODES = {"fixed_corotated": 0, "stvk_hencky": 1, "neo_hookean": 2, "linear_corotated": 3}
 
-launches = 0
 window_stats = None
 
 
@@ -71,7 +72,6 @@ def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool
                          kernel: str = "quadratic", tgrid=None, threads=None,
                          window_nodes=None):
     """Launch the CUDA kernel (CUDA tensors only), once for the whole batch."""
-    global launches
     if model.name not in MODEL_CODES:
         raise NotImplementedError(f"no linearize kernel for model '{model.name}'")
     d = v.shape[-1]
@@ -93,7 +93,7 @@ def fused_linearize_cuda(v, x, dx, res, F, mu, lam, V0, dt, model, project: bool
         *launch_args(v, width, threads, window_nodes, window_stats),
         cuda_lib.stream_ptr(v.device))
     cuda_lib.check(rc, "fused_linearize")
-    launches += n > 0          # the C entry launches nothing for no particles
+    count("launches.fused_linearize", int(n > 0))   # none for no particles
     return f, U, V, A, bp, bm
 
 

@@ -31,6 +31,7 @@ import torch
 
 from hot_tpu_torch.ops import bsr as bsr_mod
 from hot_tpu_torch.ops.bspline import quadratic_kernel_1d, stencil_offsets
+from hot_tpu_torch.utils.timing import h2d, synced
 
 
 def embedding_weights(coords_f, dtype):
@@ -98,7 +99,7 @@ def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
         n_cls, kf_c, kw_c = PAT.shape
         PAT = np.einsum("ckw,pov->cpkowv", PAT, pat_ax).reshape(
             n_cls * 2, kf_c * (2 * h + 1), kw_c * w1d)
-    PAT = torch.as_tensor(PAT, dtype=dtype, device=device)      # (2^dim, Kf, KW)
+    PAT = h2d(torch.as_tensor(PAT, dtype=dtype, device=device))      # (2^dim, Kf, KW)
     cls = torch.zeros((R,), dtype=torch.long, device=device)
     for a in range(dim):
         cls = cls * 2 + (coords[:, a] & 1)
@@ -106,7 +107,7 @@ def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
                        torch.zeros((), dtype=dtype, device=device))
     W = torch.zeros((R, KW, dd), dtype=dtype, device=device)
     for p in range(2 ** dim):
-        rows = torch.nonzero(cls == p).reshape(-1)
+        rows = synced(torch.nonzero(cls == p)).reshape(-1)
         W[rows] = torch.einsum("rkc,kw->rwc", vals[rows], PAT[p])
 
     # ---- step 2: A_c = P^T W (scatter into the coarse stencil)
@@ -141,8 +142,8 @@ def rap(A: bsr_mod.BsrMatrix, coarse_res: Tuple[int, ...], coarse_active,
         kw_flat = np.zeros(len(offs_c), np.int64)
         for a in range(dim):
             kw_flat = kw_flat * w1d + np.clip(kwc[:, a], 0, w1d - 1)
-        kw_flat = torch.as_tensor(np.where(inside, kw_flat, KW), device=device)
-        ok = torch.nonzero(Jc_row[:, e0] >= 0).reshape(-1)
+        kw_flat = h2d(torch.as_tensor(np.where(inside, kw_flat, KW), device=device))
+        ok = synced(torch.nonzero(Jc_row[:, e0] >= 0)).reshape(-1)
         Y = w_j[ok, e0, None, None] * Wp[ok[:, None], kw_flat[None, :]]   # (r, Kc, dd)
         out.index_add_(0, Jc_row[ok, e0], Y.reshape(-1, Kc * dd))
     vals_c = out.reshape(A_c.n_rows, Kc, dim, dim)

@@ -30,6 +30,7 @@ from hot_tpu_torch.ops.bspline import (
     stencil_offsets,
     tensor_weights,
 )
+from hot_tpu_torch.utils.timing import h2d
 
 
 class Stencil(NamedTuple):
@@ -48,7 +49,7 @@ def _row_major_strides(res, device):
     for r in reversed(res):
         strides.append(s)
         s *= int(r)
-    return torch.tensor(strides[::-1], dtype=torch.long, device=device)
+    return h2d(torch.tensor(strides[::-1], dtype=torch.long, device=device))
 
 
 def particle_stencil(x, dx: float, res: Tuple[int, ...],
@@ -62,7 +63,7 @@ def particle_stencil(x, dx: float, res: Tuple[int, ...],
     wn, gwn = tensor_weights(w, dw)
     offs = stencil_offsets(dim, width, device=x.device)
     coords = base[..., None, :] + offs
-    hi = torch.tensor(res, dtype=torch.long, device=x.device) - 1
+    hi = h2d(torch.tensor(res, dtype=torch.long, device=x.device)) - 1
     coords = torch.minimum(torch.clamp(coords, min=0), hi)
     node_ids = (coords * _row_major_strides(res, x.device)).sum(-1)
     if x.ndim == 3:

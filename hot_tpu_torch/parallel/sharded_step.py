@@ -69,6 +69,7 @@ from hot_tpu_torch.sim.state import FIELDS, ParticleState
 from hot_tpu_torch.solver.newton import newton_solve
 from hot_tpu_torch.utils.config import SimConfig
 from hot_tpu_torch.utils.metrics import MetricsLogger
+from hot_tpu_torch.utils.timing import h2d, span, synced
 
 def check_sharded(cfg: SimConfig, batched: bool = False):
     """Refuse what hot_tpu's sharded step does not run (it reads none of
@@ -127,7 +128,7 @@ def sharded_step(ps: ParticleState, dt: float, t: float, *, mesh: Mesh, cfg: Sim
     v_grid = grid_mv * inv_m[:, None]
 
     # ---- BC at the owned nodes' global positions
-    gravity = torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device)
+    gravity = h2d(torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device))
     v_star = v_grid + dt * gravity
     node_pos = owned_positions(slab, dx, dtype, device)
     proj, v_bc, constrained = collision.grid_boundary_conditions(
@@ -208,11 +209,11 @@ def sharded_step(ps: ParticleState, dt: float, t: float, *, mesh: Mesh, cfg: Sim
                                torch.sum(active).to(dtype)]))
     vmax = halo_mod.all_reduce_max(torch.linalg.norm(v_pic, dim=-1).amax()
                                    if ps.n else torch.zeros((), dtype=dtype, device=device), mesh)
-    ke, pe, n_act = sums.tolist()
+    ke, pe, n_act = synced(sums.tolist())
     stats = StepStats(
         newton_iters=result.iters, cg_iters=result.cg_iters, cn_residual=result.cn_residual,
         cn_residual0=result.cn_residual0, converged=result.converged,
-        max_velocity=float(vmax), kinetic_energy=ke, potential_energy=pe,
+        max_velocity=synced(float(vmax)), kinetic_energy=ke, potential_energy=pe,
         active_nodes=int(n_act), ls_backtracks=result.ls_backtracks)
     return new, stats
 
@@ -260,13 +261,13 @@ def migrate(ps: ParticleState, ids, mesh: Mesh, cfg: SimConfig):
     whose base plane is outside the grid."""
     res = cfg.grid_res[:cfg.dim]
     base = torch.floor(ps.x[:, 0] / cfg.dx - 0.5).long()
-    if ps.n and bool(((base < 0) | (base >= int(res[0]))).any()):
+    if ps.n and synced(bool(((base < 0) | (base >= int(res[0]))).any())):
         raise RuntimeError("a particle's base plane left the grid")
     if mesh.size == 1:
         return ps, ids, 0
     dest = owner_of(ps.x, cfg.dx, res, mesh.size)
     order = torch.argsort(dest, stable=True)
-    counts = torch.bincount(dest, minlength=mesh.size).tolist()
+    counts = synced(torch.bincount(dest, minlength=mesh.size).tolist())
     flat, sid = _pack(ps)[order], ids[order]
     got = halo_mod.all_to_all(list(torch.split(flat, counts)), mesh)
     got_ids = halo_mod.all_to_all(list(torch.split(sid, counts)), mesh)
@@ -337,23 +338,23 @@ class ShardedSimulation(Simulation):
     def _max_speed(self) -> float:
         vmax = (torch.linalg.norm(self.ps.v, dim=-1).amax() if self.ps.n
                 else torch.zeros((), dtype=self.ps.x.dtype, device=self.ps.x.device))
-        return float(halo_mod.all_reduce_max(vmax, self.mesh))
+        return synced(float(halo_mod.all_reduce_max(vmax, self.mesh)))
 
     def _attempt(self, dt: float):
-        with self.timer.scope("sharded_step"):
+        with span("attempt"):
             new, stats = sharded_step(self.ps, dt, self.t, mesh=self.mesh, cfg=self.cfg,
                                       model=self.model, colliders=self.colliders,
                                       plasticity=self.plasticity)
         # the stats are global, so every rank takes the same decision
-        finite = math.isfinite(stats.cn_residual) and bool(halo_mod.all_reduce_sum(
-            (~torch.isfinite(new.x)).sum(), self.mesh) == 0)
+        finite = math.isfinite(stats.cn_residual) and synced(bool(halo_mod.all_reduce_sum(
+            (~torch.isfinite(new.x)).sum(), self.mesh) == 0))
         return new, stats, finite
 
     def _accept(self, new: ParticleState):
-        with self.timer.scope("migrate"):
+        with span("migrate"):
             self.ps, self.ids, sent = migrate(new, self.ids, self.mesh, self.cfg)
-        self.migrated += int(halo_mod.all_reduce_sum(
-            torch.tensor(sent, device=self.ps.x.device), self.mesh))
+        self.migrated += synced(int(halo_mod.all_reduce_sum(
+            h2d(torch.tensor(sent, device=self.ps.x.device)), self.mesh)))
 
     def save_checkpoint(self, dirpath: str):
         save_sharded_checkpoint(dirpath, self.ps, self.ids, self.t, self.step_count,

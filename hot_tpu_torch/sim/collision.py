@@ -19,13 +19,17 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hot_tpu_torch.utils.timing import h2d
+
 STICKY = "sticky"
 SLIP = "slip"
 SEPARATE = "separate"
 
 
 def _t(value, like):
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    if isinstance(value, torch.Tensor) and value.device == like.device:
+        return value.to(like.dtype)
+    return h2d(torch.as_tensor(value, dtype=like.dtype, device=like.device))
 
 
 def _unit(v):
@@ -226,7 +230,7 @@ def grid_boundary_conditions(node_pos, t, colliders: Sequence[Collider], grid_v=
         constrained = constrained | active
     if boundary_margin > 0:
         lo = boundary_margin * dx
-        hi = (torch.tensor(res, dtype=node_pos.dtype, device=node_pos.device)
+        hi = (h2d(torch.tensor(res, dtype=node_pos.dtype, device=node_pos.device))
               - 1 - boundary_margin) * dx
         wall = torch.any((node_pos < lo) | (node_pos > hi[None, :]), dim=-1)
         proj = torch.where(wall[:, None, None], torch.zeros_like(proj), proj)

@@ -66,7 +66,7 @@ from hot_tpu_torch.solver.lbfgs import lbfgs_solve
 from hot_tpu_torch.solver.newton import NewtonResult, newton_solve
 from hot_tpu_torch.utils.config import SimConfig
 from hot_tpu_torch.utils.metrics import MetricsLogger
-from hot_tpu_torch.utils.timing import PhaseTimer
+from hot_tpu_torch.utils.timing import TRACER, h2d, span, synced
 
 
 class StepStats(NamedTuple):
@@ -232,12 +232,13 @@ def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
         precond = lambda Dinv, r: torch.einsum("...ij,...j->...i", Dinv, r)  # noqa: E731
     elif sol.preconditioner == "multigrid":
         mgc = sol.multigrid
-        mg_static = mg_mod.build_static(
-            state.x, state.m, res, dx, mgc.levels, constrained, dtype,
-            assembled_from=mgc.assembled_from_level if mgc.assembled else None,
-            kernel=cfg.transfer_kernel, tgrid=objective.tgrid,
-            tile_capacity=cfg.tile_capacity, dense_switch=mgc.sparse_dense_switch,
-            composed=mgc.coarsening == "galerkin")
+        with span("mg_static"):
+            mg_static = mg_mod.build_static(
+                state.x, state.m, res, dx, mgc.levels, constrained, dtype,
+                assembled_from=mgc.assembled_from_level if mgc.assembled else None,
+                kernel=cfg.transfer_kernel, tgrid=objective.tgrid,
+                tile_capacity=cfg.tile_capacity, dense_switch=mgc.sparse_dense_switch,
+                composed=mgc.coarsening == "galerkin")
 
         def build_precond(hp):
             return mg_mod.build_precond(mg_static, state.F, hp[0], state.V0, dt, mgc, dim)
@@ -293,7 +294,7 @@ def update_particles(state: ParticleState, st: transfer.Stencil, v_new, v_grid, 
         v_p, C_next = v_pic, C_new
     eye = torch.eye(dim, dtype=dtype, device=device)
     F_new, Jp_new = return_map(plasticity, (eye + dt * grad_v) @ state.F, state)
-    hi = (torch.tensor(res, dtype=dtype, device=device) - 3.0) * dx
+    hi = (h2d(torch.tensor(res, dtype=dtype, device=device)) - 3.0) * dx
     x_new = torch.minimum(torch.clamp(state.x + dt * v_pic, min=2.0 * dx), hi)
     return state.replace(x=x_new, v=v_p, C=C_next, F=F_new, Jp=Jp_new)
 
@@ -319,32 +320,36 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
     sol = cfg.solver
 
     # ---- grid activation + P2G
+    tgrid = None
     if cfg.grid_backend == "sparse":
-        tgrid = sparse.build_tile_grid(state.x, dx, res, cfg.tile_capacity)
-        st = sparse.sparse_stencil(state.x, dx, tgrid)
-        n_nodes = tgrid.n_cnodes
-        node_pos = sparse.node_positions(tgrid, dx, dtype)
-    else:
-        tgrid = None
-        st = transfer.particle_stencil(state.x, dx, res, kernel=cfg.transfer_kernel)
-        n_nodes = transfer.n_nodes_of(res)
-        node_pos = transfer.node_positions(res, dx, dtype, device)
-    grid_m, grid_mv = transfer.p2g_mass_momentum(st, state.v, state.C, state.m, n_nodes)
-    active = grid_m > 0
-    inv_m = torch.where(active, 1.0 / torch.clamp(grid_m, min=1e-30), torch.zeros_like(grid_m))
-    v_grid = grid_mv * inv_m[..., None]
+        with span("tile_activation"):
+            tgrid = sparse.build_tile_grid(state.x, dx, res, cfg.tile_capacity)
+            st = sparse.sparse_stencil(state.x, dx, tgrid)
+            n_nodes = tgrid.n_cnodes
+            node_pos = sparse.node_positions(tgrid, dx, dtype)
+    with span("p2g"):
+        if tgrid is None:
+            st = transfer.particle_stencil(state.x, dx, res, kernel=cfg.transfer_kernel)
+            n_nodes = transfer.n_nodes_of(res)
+            node_pos = transfer.node_positions(res, dx, dtype, device)
+        grid_m, grid_mv = transfer.p2g_mass_momentum(st, state.v, state.C, state.m, n_nodes)
+        active = grid_m > 0
+        inv_m = torch.where(active, 1.0 / torch.clamp(grid_m, min=1e-30),
+                            torch.zeros_like(grid_m))
+        v_grid = grid_mv * inv_m[..., None]
 
     # ---- grid BC (node positions shared by a batch's members on the dense grid)
-    gravity = torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device)
-    v_star = v_grid + dt * gravity
-    proj, v_bc, constrained = collision.grid_boundary_conditions(
-        node_pos, t, colliders, grid_v=v_star, boundary_margin=2, res=res, dx=dx)
-    if batched:
-        # each member's own copy, so that every projection runs at the batch's
-        # shape and gives contiguous vectors, as the kernels take them
-        proj = proj.expand(v_star.shape + (dim,)).contiguous()
-        v_bc = v_bc.expand(v_star.shape).contiguous()
-    v0 = collision.apply_bc_to_velocity(v_star, proj, v_bc)
+    with span("grid_bc"):
+        gravity = h2d(torch.tensor(cfg.gravity[:dim], dtype=dtype, device=device))
+        v_star = v_grid + dt * gravity
+        proj, v_bc, constrained = collision.grid_boundary_conditions(
+            node_pos, t, colliders, grid_v=v_star, boundary_margin=2, res=res, dx=dx)
+        if batched:
+            # each member's own copy, so that every projection runs at the batch's
+            # shape and gives contiguous vectors, as the kernels take them
+            proj = proj.expand(v_star.shape + (dim,)).contiguous()
+            v_bc = v_bc.expand(v_star.shape).contiguous()
+        v0 = collision.apply_bc_to_velocity(v_star, proj, v_bc)
 
     # ---- grid update: implicit (Newton or L-BFGS) or explicit
     objective = obj_mod.make_objective(model, st, state.F, state.V0, state.mu, state.lam,
@@ -356,22 +361,24 @@ def advance_one_step(state: ParticleState, dt: float, t: float, *, cfg: SimConfi
         result = _lbfgs_update(model, objective, sol, v0)
     else:
         result = _newton_update(model, objective, cfg, state, v0, constrained)
-    v_new = collision.apply_bc_to_velocity(result.v, proj, v_bc)
-    new_state = update_particles(state, st, v_new, v_grid, dt, cfg, plasticity)
+    with span("g2p"):
+        v_new = collision.apply_bc_to_velocity(result.v, proj, v_bc)
+        new_state = update_particles(state, st, v_new, v_grid, dt, cfg, plasticity)
     v_p, F_new = new_state.v, new_state.F
 
     # ---- diagnostics (one readback), per member for a batch
-    if cfg.compute_energy:
-        potential = obj_mod.member_sum(
-            state.V0 * cm.psi_from_F(model, F_new, state.mu, state.lam), 1)
-    else:
-        potential = torch.zeros(active.shape[:-1], dtype=dtype, device=device)
-    vmax, ke, pe, n_active = torch.stack([
-        torch.linalg.norm(v_p, dim=-1).amax(-1),
-        0.5 * obj_mod.member_sum(state.m * torch.sum(v_p * v_p, dim=-1), 1),
-        potential,
-        obj_mod.member_sum(active, 1).to(dtype),
-    ]).tolist()
+    with span("diagnostics"):
+        if cfg.compute_energy:
+            potential = obj_mod.member_sum(
+                state.V0 * cm.psi_from_F(model, F_new, state.mu, state.lam), 1)
+        else:
+            potential = torch.zeros(active.shape[:-1], dtype=dtype, device=device)
+        vmax, ke, pe, n_active = synced(torch.stack([
+            torch.linalg.norm(v_p, dim=-1).amax(-1),
+            0.5 * obj_mod.member_sum(state.m * torch.sum(v_p * v_p, dim=-1), 1),
+            potential,
+            obj_mod.member_sum(active, 1).to(dtype),
+        ]).tolist())
     stats = StepStats(
         newton_iters=result.iters, cg_iters=result.cg_iters,
         cn_residual=result.cn_residual, cn_residual0=result.cn_residual0,
@@ -412,7 +419,7 @@ class Simulation:
         self.colliders = tuple(colliders)
         self.plasticity = plasticity
         self.metrics = metrics or MetricsLogger()
-        self.timer = PhaseTimer(state.x.device)
+        self.on_card = state.x.device.type == "cuda"
         self.t = 0.0
         self.step_count = 0
         self.retry_count = 0
@@ -421,17 +428,17 @@ class Simulation:
         _check_supported(cfg, plasticity, state.batch is not None)
 
     def _max_speed(self) -> float:
-        return float(torch.linalg.norm(self.state.v, dim=-1).max())
+        return synced(float(torch.linalg.norm(self.state.v, dim=-1).max()))
 
     def _attempt(self, dt: float):
         """One try of the step at dt from the current state: (new state,
         stats, whether it is finite)."""
-        with self.timer.scope("advance_one_step"):
+        with span("attempt"):
             new_state, stats = advance_one_step(
                 self.state, dt, self.t, cfg=self.cfg, model=self.model,
                 colliders=self.colliders, plasticity=self.plasticity)
-        finite = (all(map(math.isfinite, _members(stats.cn_residual)))
-                  and bool(torch.isfinite(new_state.x).all()))
+            finite = (all(map(math.isfinite, _members(stats.cn_residual)))
+                      and synced(bool(torch.isfinite(new_state.x).all())))
         return new_state, stats, finite
 
     def _accept(self, new_state: ParticleState):
@@ -449,25 +456,29 @@ class Simulation:
     def step(self, dt: Optional[float] = None) -> StepStats:
         """One step. If Newton does not converge or the state goes
         non-finite, the step is retried from the saved state at halved dt,
-        up to solver.dt_retries times."""
+        up to solver.dt_retries times. The step's spans carry its number
+        and each try's index (``utils.timing``)."""
         dt = self.compute_dt() if dt is None else dt
-        attempt = 0
-        while True:
-            new_state, stats, finite = self._attempt(dt)
-            converged = all(_members(stats.converged))
-            if finite and (converged or attempt >= self.cfg.solver.dt_retries):
-                break
-            if attempt >= self.cfg.solver.dt_retries:
-                self.metrics.log(event="nonfinite_give_up", dt=dt)
-                break
-            attempt += 1
-            dt = dt * 0.5
-            self.retry_count += 1
-            self.metrics.log(event="dt_retry", attempt=attempt, dt=dt)
-        self._accept(new_state)
-        self.t += dt
-        self.step_count += 1
-        self.metrics.log(step=self.step_count, t=self.t, dt=dt, **stats._asdict())
+        TRACER.begin_step(self.step_count + 1, self.on_card)
+        with span("step"):
+            attempt = 0
+            while True:
+                TRACER.attempt = attempt
+                new_state, stats, finite = self._attempt(dt)
+                converged = all(_members(stats.converged))
+                if finite and (converged or attempt >= self.cfg.solver.dt_retries):
+                    break
+                if attempt >= self.cfg.solver.dt_retries:
+                    self.metrics.log(event="nonfinite_give_up", dt=dt)
+                    break
+                attempt += 1
+                dt = dt * 0.5
+                self.retry_count += 1
+                self.metrics.log(event="dt_retry", attempt=attempt, dt=dt)
+            self._accept(new_state)
+            self.t += dt
+            self.step_count += 1
+            self.metrics.log(step=self.step_count, t=self.t, dt=dt, **stats._asdict())
         return stats
 
     def advance_frame(self, frame_callback: Optional[Callable] = None):

@@ -24,6 +24,9 @@ On a slab of a rank mesh (``parallel``) every dot product is a partial sum
 over the rank's nodes: ``reduce`` (hot_tpu's ``axis_name``) sums it over the
 ranks, so every rank takes the same alpha, beta and iteration count. None
 (one grid) leaves the path as it was.
+
+Each iteration is a ``cg.iter`` span (``utils.timing``), and its read-back
+counts one host sync.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from hot_tpu_torch.utils.timing import span, synced
 
 
 class CGResult(NamedTuple):
@@ -91,6 +96,12 @@ def _identity(x):
     return x
 
 
+def _result(x, iters, rnorm, rnorm0, threshold) -> CGResult:
+    converged = rnorm <= threshold
+    return CGResult(x=x, iters=iters, residual=rnorm, residual0=rnorm0,
+                    converged=converged if converged.ndim else synced(bool(converged)))
+
+
 def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,
              project: Optional[Callable] = None, tol=1e-3, abs_tol: float = 0.0,
              max_iters: int = 200, active=None, reduce: Optional[Callable] = None) -> CGResult:
@@ -117,28 +128,27 @@ def cg_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable]
     iters = [0] * going.shape[0] if going.ndim else 0
     k = 0
     while k < max_iters:
-        flags = going.tolist()
+        flags = synced(going.tolist())
         if not any_going(flags):
             break
-        Ap = project(multiply(p))
-        pAp = dot_(p, Ap)
-        alpha = per_member(torch.where(
-            pAp > 0, rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp),
-            torch.zeros_like(pAp)), p)
-        x = keep(going, x + alpha * p, x)
-        r = keep(going, r - alpha * Ap, r)
-        z = project(precondition(r))
-        rz_new = dot_(r, z)
-        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p = keep(going, z + per_member(beta, p) * p, p)
-        rz = keep(going, rz_new, rz)
-        k += 1
-        iters = count(iters, flags)
-        rnorm = keep(going, torch.sqrt(dot_(r, r)), rnorm)
-        going = going & (rnorm > threshold)
-    converged = rnorm <= threshold
-    return CGResult(x=x, iters=iters, residual=rnorm, residual0=rnorm0,
-                    converged=converged if converged.ndim else bool(converged))
+        with span("cg.iter"):
+            Ap = project(multiply(p))
+            pAp = dot_(p, Ap)
+            alpha = per_member(torch.where(
+                pAp > 0, rz / torch.where(pAp == 0, torch.ones_like(pAp), pAp),
+                torch.zeros_like(pAp)), p)
+            x = keep(going, x + alpha * p, x)
+            r = keep(going, r - alpha * Ap, r)
+            z = project(precondition(r))
+            rz_new = dot_(r, z)
+            beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+            p = keep(going, z + per_member(beta, p) * p, p)
+            rz = keep(going, rz_new, rz)
+            k += 1
+            iters = count(iters, flags)
+            rnorm = keep(going, torch.sqrt(dot_(r, r)), rnorm)
+            going = going & (rnorm > threshold)
+    return _result(x, iters, rnorm, rnorm0, threshold)
 
 
 def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Callable] = None,
@@ -177,26 +187,25 @@ def minres_solve(multiply: Callable, b, x0=None, *, precondition: Optional[Calla
     iters = [0] * going.shape[0] if going.ndim else 0
     k = 0
     while k < max_iters:
-        flags = going.tolist()
+        flags = synced(going.tolist())
         if not any_going(flags):
             break
-        ApMAp = dot_(Ap, project(precondition(Ap)))
-        alpha = per_member(torch.where(
-            ApMAp.abs() > 0, zAz / torch.where(ApMAp == 0, torch.ones_like(ApMAp), ApMAp),
-            torch.zeros_like(ApMAp)), p)
-        x = keep(going, x + alpha * p, x)
-        r = keep(going, r - alpha * Ap, r)
-        z = project(precondition(r))
-        Az = project(multiply(z))
-        zAz_new = dot_(z, Az)
-        beta = per_member(zAz_new / torch.where(zAz == 0, torch.ones_like(zAz), zAz), p)
-        p = keep(going, z + beta * p, p)
-        Ap = keep(going, Az + beta * Ap, Ap)
-        zAz = keep(going, zAz_new, zAz)
-        k += 1
-        iters = count(iters, flags)
-        rnorm = keep(going, torch.sqrt(dot_(r, r)), rnorm)
-        going = going & (rnorm > threshold)
-    converged = rnorm <= threshold
-    return CGResult(x=x, iters=iters, residual=rnorm, residual0=rnorm0,
-                    converged=converged if converged.ndim else bool(converged))
+        with span("cg.iter"):
+            ApMAp = dot_(Ap, project(precondition(Ap)))
+            alpha = per_member(torch.where(
+                ApMAp.abs() > 0, zAz / torch.where(ApMAp == 0, torch.ones_like(ApMAp), ApMAp),
+                torch.zeros_like(ApMAp)), p)
+            x = keep(going, x + alpha * p, x)
+            r = keep(going, r - alpha * Ap, r)
+            z = project(precondition(r))
+            Az = project(multiply(z))
+            zAz_new = dot_(z, Az)
+            beta = per_member(zAz_new / torch.where(zAz == 0, torch.ones_like(zAz), zAz), p)
+            p = keep(going, z + beta * p, p)
+            Ap = keep(going, Az + beta * Ap, Ap)
+            zAz = keep(going, zAz_new, zAz)
+            k += 1
+            iters = count(iters, flags)
+            rnorm = keep(going, torch.sqrt(dot_(r, r)), rnorm)
+            going = going & (rnorm > threshold)
+    return _result(x, iters, rnorm, rnorm0, threshold)

@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from hot_tpu_torch.solver.cg import any_going, count, dot, keep, per_member
+from hot_tpu_torch.utils.timing import h2d, synced
 
 
 class LbfgsResult(NamedTuple):
@@ -76,8 +77,8 @@ def _lbfgs_batch(energy, gradient, project, precondition, cn_norm, v0, g, gn, m:
 
     def pair(i):
         """Each member's pair i back from its newest: (s, y, rho, valid)."""
-        slot = torch.tensor([(c - 1 - i) % m for c in counts], device=v0.device)
-        valid = torch.tensor([i < n for n in n_pairs], device=v0.device)
+        slot = h2d(torch.tensor([(c - 1 - i) % m for c in counts], device=v0.device))
+        valid = h2d(torch.tensor([i < n for n in n_pairs], device=v0.device))
         return S[slot, members], Y[slot, members], rho[slot, members], valid
 
     def two_loop(q):
@@ -96,7 +97,7 @@ def _lbfgs_batch(energy, gradient, project, precondition, cn_norm, v0, g, gn, m:
 
     v = v0
     going = gn > cn_eps
-    flags = going.tolist()
+    flags = synced(going.tolist())
     k, iters, backtracks = 0, [0] * B, [0] * B
     while k < max_iters and any_going(flags):
         d = project(-two_loop(g))
@@ -112,7 +113,7 @@ def _lbfgs_batch(energy, gradient, project, precondition, cn_norm, v0, g, gn, m:
         for _ in range(ls_max_backtracks):
             trying = trying & ~(energy(v + per_member(alpha, v) * d)
                                 <= E0 + 1e-4 * alpha * slope)
-            halve = trying.tolist()
+            halve = synced(trying.tolist())
             if not any_going(halve):
                 break
             alpha = torch.where(trying, 0.5 * alpha, alpha)
@@ -126,7 +127,7 @@ def _lbfgs_batch(energy, gradient, project, precondition, cn_norm, v0, g, gn, m:
             S, Y = (torch.zeros((m,) + v.shape, dtype=v.dtype, device=v.device)
                     for _ in range(2))
             rho = torch.zeros((m, B), dtype=v.dtype, device=v.device)
-        slot = torch.tensor([c % m for c in counts], device=v.device)
+        slot = h2d(torch.tensor([c % m for c in counts], device=v.device))
         S[slot, members] = keep(kept, s, S[slot, members])
         Y[slot, members] = keep(kept, y, Y[slot, members])
         rho[slot, members] = torch.where(kept, 1.0 / torch.where(kept, sy, torch.ones_like(sy)),
@@ -136,9 +137,9 @@ def _lbfgs_batch(energy, gradient, project, precondition, cn_norm, v0, g, gn, m:
         k += 1
         iters = count(iters, flags)
         going = going & (gn > cn_eps)
-        kept_flags, flags = torch.stack([kept, going]).tolist()
+        kept_flags, flags = synced(torch.stack([kept, going]).tolist())
         counts = count(counts, kept_flags)
         n_pairs = [min(c, m) for c in counts]
-    gn = gn.tolist()
+    gn = synced(gn.tolist())
     return LbfgsResult(v=v, iters=iters, grad_norm=gn, converged=[x <= cn_eps for x in gn],
                        backtracks=backtracks)

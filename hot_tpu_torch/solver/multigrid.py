@@ -77,6 +77,7 @@ from hot_tpu_torch.ops.fused_apply import soa
 from hot_tpu_torch.sim import objective as obj_mod
 from hot_tpu_torch.solver.cg import cg_solve, dot, per_member
 from hot_tpu_torch.utils.config import MultigridConfig
+from hot_tpu_torch.utils.timing import span, synced
 
 
 @dataclasses.dataclass
@@ -347,7 +348,11 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
     reuse (cfg.rap_refresh == "lagged"): a previously built MGPrecond whose
     Galerkin chain (every assembled level after the first) and coarse factor
     are taken as they are; the first assembled level and the smoother data
-    of the levels above are rebuilt."""
+    of the levels above are rebuilt.
+
+    Spans (``utils.timing``): ``mg.assemble`` (a level's quadrature or
+    composed operator), ``mg.rap``, ``mg.smoother_data`` (per level) and
+    ``mg.coarse_factor``."""
     ctx = hess.context(dim)
     pre = MGPrecond(diag_inv=(), lmax=(), hess=hess, F_soa=soa(F_n, F_n.ndim - 3), V0=V0)
     n_levels = len(mg.levels)
@@ -369,21 +374,25 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
         mat = None
         if level.mat_sym is not None:
             if galerkin and prev_mat is not None:
-                mat = spgemm.rap(prev_mat, level.res, level.mat_sym.row_nodes(),
-                                 max_half=cfg.rap_max_half, coarse_tgrid=level.tgrid)
+                with span("mg.rap"):
+                    mat = spgemm.rap(prev_mat, level.res, level.mat_sym.row_nodes(),
+                                     max_half=cfg.rap_max_half, coarse_tgrid=level.tgrid)
             elif galerkin and level.comp is not None:
                 c = level.comp
-                mat = comp_mod.assemble_composed_galerkin(
-                    level.mat_sym, l, F_n, ctx, V0, dt, c.node_coords, c.node_m, c.base, c.w,
-                    c.dw)
+                with span("mg.assemble"):
+                    mat = comp_mod.assemble_composed_galerkin(
+                        level.mat_sym, l, F_n, ctx, V0, dt, c.node_coords, c.node_m, c.base,
+                        c.w, c.dw)
             else:
-                mat = bsr_mod.assemble_hessian(level.mat_sym, level.stencil, F_n, ctx, V0, dt,
-                                               level.grid_m)
+                with span("mg.assemble"):
+                    mat = bsr_mod.assemble_hessian(level.mat_sym, level.stencil, F_n, ctx, V0,
+                                                   dt, level.grid_m)
             prev_mat = mat
         mats.append(mat)
         need_lmax = cfg.smoother == "chebyshev" and (
             l < n_levels - 1 or cfg.coarse_solver == "smoother")
-        Dinv, lam = _level_smoother_data(level, mat, pre, ctx, F_n, dt, cfg, need_lmax, dim)
+        with span("mg.smoother_data"):
+            Dinv, lam = _level_smoother_data(level, mat, pre, ctx, F_n, dt, cfg, need_lmax, dim)
         diag_inv.append(Dinv)
         lmax.append(lam)
     chol = None
@@ -392,10 +401,12 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
                 and n_levels - 1 > first_asm):
             chol = reuse.coarse_chol        # the coarsest level was lagged above
         elif galerkin and mats[-1] is not None:
-            chol = (_dense_factor_from_mat(mats[-1], _free_rows_of(mg.levels[-1], mats[-1]),
-                                           dim), mats[-1])
+            with span("mg.coarse_factor"):
+                chol = (_dense_factor_from_mat(mats[-1], _free_rows_of(mg.levels[-1], mats[-1]),
+                                               dim), mats[-1])
         else:
-            chol = _coarse_dense_factor(mg.levels[-1], F_n, ctx, V0, dt, dim)
+            with span("mg.coarse_factor"):
+                chol = _coarse_dense_factor(mg.levels[-1], F_n, ctx, V0, dt, dim)
     return pre._replace(diag_inv=tuple(diag_inv), lmax=tuple(lmax), coarse_chol=chol,
                         mats=tuple(mats))
 
@@ -417,7 +428,7 @@ def _dense_factor_from_mat(mat: bsr_mod.BsrMatrix, free_rows, dim: int):
     free = free_rows.reshape(-1)
     cols = mat.col_row.long().clamp(min=0)
     ok = (mat.col_row >= 0) & free[:, None] & free[cols]
-    r, k = torch.nonzero(ok, as_tuple=True)
+    r, k = synced(torch.nonzero(ok, as_tuple=True))
     A = torch.zeros((B, n, dim, n, dim), dtype=mat.vals.dtype, device=mat.vals.device)
     # the columns of one row are distinct nodes, so (row, col) pairs are unique
     A[torch.div(r, n, rounding_mode="floor"), r % n, :, cols[r, k] % n, :] = mat.vals[r, k]
@@ -425,7 +436,7 @@ def _dense_factor_from_mat(mat: bsr_mod.BsrMatrix, free_rows, dim: int):
     A = A + torch.diag_embed((~free).reshape(B, n).repeat_interleave(dim, dim=1).to(A.dtype))
     eps = 1e-8 * torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1).amax(-1), min=1.0)
     A = A + eps[:, None, None] * torch.eye(n * dim, dtype=A.dtype, device=A.device)
-    L = torch.linalg.cholesky(A)
+    L = synced(torch.linalg.cholesky(A))       # checks the factor's info on the host
     return L if mat.batch is not None else L[0]
 
 
@@ -604,9 +615,11 @@ def v_cycle(mg: MGStatic, pre: MGPrecond, dt: float, cfg: MultigridConfig, b, l:
 
 
 def mg_precondition(mg: MGStatic, pre: MGPrecond, dt: float, cfg: MultigridConfig, r):
-    """Preconditioner application: `cycles` V-cycles (usually 1)."""
-    z = v_cycle(mg, pre, dt, cfg, r)
-    for _ in range(cfg.cycles - 1):
-        res = r - level_multiply_any(mg.levels[0], pre.mats[0], pre, dt, z)
-        z = z + v_cycle(mg, pre, dt, cfg, level_project(mg.levels[0], res))
+    """Preconditioner application: `cycles` V-cycles (usually 1), one
+    ``vcycle`` span (``utils.timing``)."""
+    with span("vcycle"):
+        z = v_cycle(mg, pre, dt, cfg, r)
+        for _ in range(cfg.cycles - 1):
+            res = r - level_multiply_any(mg.levels[0], pre.mats[0], pre, dt, z)
+            z = z + v_cycle(mg, pre, dt, cfg, level_project(mg.levels[0], res))
     return z

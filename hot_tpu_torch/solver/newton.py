@@ -26,6 +26,7 @@ import torch
 
 from hot_tpu_torch.solver.cg import (any_going, cg_solve, count, keep, minres_solve,
                                      per_member, reducing)
+from hot_tpu_torch.utils.timing import span, synced
 
 SOLVERS = {"cg": cg_solve, "minres": minres_solve}
 
@@ -66,6 +67,11 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
     reduce (hot_tpu's axis_name) sums a rank's partial dot products over the
     ranks of a slab decomposition; cn_norm and energy then return the
     global values, so every rank takes the same iterations.
+
+    Spans (``utils.timing``): ``newton`` around the solve, ``newton.iter``
+    per iteration, ``linearize`` per call, ``precond_build`` per build or
+    refresh of the preconditioner, ``cg`` per linear solve and
+    ``line_search``.
     """
     if linear_solver not in SOLVERS:
         raise ValueError(f"unknown linear_solver '{linear_solver}'")
@@ -75,61 +81,69 @@ def newton_solve(*, multiply: Callable, project: Callable, precondition: Callabl
         raise ValueError(f"unknown precond_refresh '{precond_refresh}'")
     if linearize is None:
         linearize = lambda v: (residual(v), build_hessian(v))  # noqa: E731
-
-    v = v0
-    r, hess = linearize(v)
-    cn0 = cn_norm(r)
-    cn = cn0
-    batch = cn0.shape[0] if cn0.ndim else None
-    dot_ = reducing(batch is not None, reduce)
-    partial = refresh_preconditioner is not None and precond_refresh == "newton"
-    frozen = build_preconditioner(hess) if precond_refresh == "step" or partial else None
-    history = [cn0]
     solve = SOLVERS[linear_solver]
-    k = 0
-    iters, cg_total, backtracks = ([0] * batch for _ in range(3)) if batch else (0, 0, 0)
-    while k < max_newton:
-        going = (cn > cn_eps) & (torch.sqrt(dot_(r, r)) > abs_tol)
-        flags = going.tolist()
-        if not any_going(flags):
-            break
-        if precond_refresh == "step":
-            pstate = frozen
-        elif partial:
-            pstate = refresh_preconditioner(hess, frozen)
-        else:
-            pstate = build_preconditioner(hess)
-        if adaptive_forcing:
-            eta = torch.clamp(torch.sqrt(cn / torch.clamp(cn0, min=1e-30)), cg_tol, 0.5)
-        else:
-            eta = cg_tol
-        res = solve(lambda w: multiply(hess, w), -r,
-                    precondition=lambda z: precondition(pstate, z),
-                    project=project, tol=eta, max_iters=max_cg, reduce=reduce,
-                    **({} if batch is None else {"active": going}))
-        step = res.x
-        if line_search:
-            E0, slope = energy(v), dot_(r, res.x)
-            alpha = torch.ones_like(cn)
-            trying = going
-            for _ in range(ls_max_backtracks):
-                trying = trying & ~(energy(v + per_member(alpha, v) * res.x)
-                                    <= E0 + 1e-4 * alpha * slope)
-                halve = trying.tolist()
-                if not any_going(halve):
-                    break
-                alpha = torch.where(trying, 0.5 * alpha, alpha)
-                backtracks = count(backtracks, halve)
-            step = per_member(alpha, v) * res.x
-        v = keep(going, v + step, v)
-        r_new, hess = linearize(v)
-        r, cn = keep(going, r_new, r), keep(going, cn_norm(r_new), cn)
-        k += 1
-        iters = count(iters, flags)
-        cg_total = count(cg_total, res.iters)   # a frozen member's CG counts 0
-        history.append(cn)
-    # one readback: the CN norms from cn0 on
-    history = torch.stack(history).tolist()
+    with span("newton"):
+        v = v0
+        with span("linearize"):
+            r, hess = linearize(v)
+        cn0 = cn_norm(r)
+        cn = cn0
+        batch = cn0.shape[0] if cn0.ndim else None
+        dot_ = reducing(batch is not None, reduce)
+        partial = refresh_preconditioner is not None and precond_refresh == "newton"
+        frozen = None
+        if precond_refresh == "step" or partial:
+            with span("precond_build"):
+                frozen = build_preconditioner(hess)
+        history = [cn0]
+        k = 0
+        iters, cg_total, backtracks = ([0] * batch for _ in range(3)) if batch else (0, 0, 0)
+        while k < max_newton:
+            going = (cn > cn_eps) & (torch.sqrt(dot_(r, r)) > abs_tol)
+            flags = synced(going.tolist())
+            if not any_going(flags):
+                break
+            with span("newton.iter"):
+                if precond_refresh == "step":
+                    pstate = frozen
+                else:
+                    with span("precond_build"):
+                        pstate = (refresh_preconditioner(hess, frozen) if partial
+                                  else build_preconditioner(hess))
+                if adaptive_forcing:
+                    eta = torch.clamp(torch.sqrt(cn / torch.clamp(cn0, min=1e-30)), cg_tol, 0.5)
+                else:
+                    eta = cg_tol
+                with span("cg"):
+                    res = solve(lambda w: multiply(hess, w), -r,
+                                precondition=lambda z: precondition(pstate, z),
+                                project=project, tol=eta, max_iters=max_cg, reduce=reduce,
+                                **({} if batch is None else {"active": going}))
+                step = res.x
+                if line_search:
+                    with span("line_search"):
+                        E0, slope = energy(v), dot_(r, res.x)
+                        alpha = torch.ones_like(cn)
+                        trying = going
+                        for _ in range(ls_max_backtracks):
+                            trying = trying & ~(energy(v + per_member(alpha, v) * res.x)
+                                                <= E0 + 1e-4 * alpha * slope)
+                            halve = synced(trying.tolist())
+                            if not any_going(halve):
+                                break
+                            alpha = torch.where(trying, 0.5 * alpha, alpha)
+                            backtracks = count(backtracks, halve)
+                        step = per_member(alpha, v) * res.x
+                v = keep(going, v + step, v)
+                with span("linearize"):
+                    r_new, hess = linearize(v)
+                r, cn = keep(going, r_new, r), keep(going, cn_norm(r_new), cn)
+                k += 1
+                iters = count(iters, flags)
+                cg_total = count(cg_total, res.iters)   # a frozen member's CG counts 0
+                history.append(cn)
+        # one readback: the CN norms from cn0 on
+        history = synced(torch.stack(history).tolist())
     if batch is None:
         return NewtonResult(v=v, iters=k, cg_iters=cg_total, cn_residual=history[-1],
                             cn_residual0=history[0], converged=history[-1] <= cn_eps,

@@ -1,0 +1,14 @@
+"""Points at which the host waits for the device, per Newton iteration, over
+the traced segment: the program's ``host_syncs`` counter's increase over its
+``newton.iter`` spans (portbench/spans.py); layer: Newton/CG control. None
+where the program has no such counter or took no Newton iteration."""
+
+from portbench import spans
+
+
+def read(trace):
+    prog = spans.program(trace)
+    if prog is None:
+        return None
+    newton = len(spans.named(prog, "newton.iter"))
+    return prog["counts"].get("host_syncs", 0) / newton if newton else None

@@ -31,6 +31,7 @@ from hot_tpu.sim import objective as jobj
 from hot_tpu_torch.ops import fused_apply as tfa
 from hot_tpu_torch.ops import fused_linearize as tfl
 from hot_tpu_torch.sim import objective as tobj
+from hot_tpu_torch.utils.timing import TRACER
 
 from test_torch_ref import DT, assert_close, objective_pair, one_torch_thread, t2n  # noqa: F401
 
@@ -141,14 +142,20 @@ def test_fused_linearize_plain_matches_pallas(rng, d, model_name):
                  _pair_products(np.asarray(U), np.asarray(V)), 1e-8)
 
 
+def _launches():
+    """The three kernels' launch counters (the tracer's)."""
+    return tuple(TRACER.counts["launches." + k]
+                 for k in ("fused_apply", "fused_linearize", "bsr_spmv"))
+
+
 def test_dispatch_is_by_device(rng):
     """CPU tensors run the plain versions without counting a launch."""
     p = objective_pair("block_drop_2d", rng)
     to, v = p.to, p.v
-    before = (tfa.launches, tfl.launches)
+    before = _launches()
     _, th = tobj.linearize(p.tmodel, to, torch.from_numpy(v))
     tobj.multiply(to, th, torch.from_numpy(v))
-    assert (tfa.launches, tfl.launches) == before
+    assert _launches() == before
     with pytest.raises(ValueError):
         tfa.fused_apply(torch.from_numpy(v).to("meta"), to.x_soa, to.dx, to.res,
                         to.F_soa, th.U, th.V, th.A, th.b_plus, th.b_minus, to.V0, DT)
@@ -176,13 +183,13 @@ def test_launches_count_only_real_launches(monkeypatch, n):
     pairs = [torch.zeros((1, n), dtype=f64) for _ in range(2)]
     per_particle = [torch.ones(n, dtype=f64) for _ in range(3)]
     grid = torch.zeros((64, 2), dtype=f64)
-    before = (tfa.launches, tfl.launches, tsp.launches)
+    before = _launches()
     tfa.fused_apply_cuda(grid, x, 0.125, res, F, *ctx, *pairs, per_particle[0], DT)
     tfl.fused_linearize_cuda(grid, x, 0.125, res, F, *per_particle, DT,
                              SimpleNamespace(name="fixed_corotated"))
     tsp.bsr_spmv_cuda(torch.zeros((n, 3, 2, 2), dtype=f64),
                       torch.zeros((n, 3), dtype=torch.int32), grid)
-    after = (tfa.launches, tfl.launches, tsp.launches)
+    after = _launches()
     assert [b - a for a, b in zip(before, after)] == [int(n > 0)] * 3
 
 

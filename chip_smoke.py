@@ -31,7 +31,8 @@ Phases, each printing one JSON line:
               window budget
   4 main      Simulation.step x12 at 64^3 (ppc 8, dt 2e-3, fp32, block-Jacobi):
               finite, converged, and the kernels' launch counters equal
-              sum(newton + 1) and sum(cg + newton); the particle kernels'
+              sum(newton + 1), sum(cg + newton) and, for the block
+              diagonal, sum(newton); the particle kernels'
               window counters (box sizes, overflow share, global atomics per
               launch)
   5 mg        the same 12 steps under config 3 (assembled Galerkin multigrid,
@@ -168,6 +169,26 @@ Phases, each printing one JSON line:
               --nproc-per-node 1` with mesh.shape=(-1,) on NCCL: the
               one-grid CLI's counts; (e) 2 NCCL ranks on the card: refused,
               non-zero exit
+  22 block_diag  the block-diagonal kernel (fused_block_diag) against its
+              plain version on the same card tensors, each node's block
+              within 2e-5 (fp32) / 1e-10 (fp64) of its largest entry, one
+              launch counted per call: the 128^3 bar (F perturbed by 0.1)
+              on the dense grid and on its tile grid (the benchmark's
+              block-Jacobi cell), the 64^3 bar with the quadratic and the
+              cubic stencil and the 64^2 drop with the cubic one, fp32 and
+              fp64 (the cubic cases' scale floored at 1e-4 of the largest
+              block's; their readings without the floor, and the plain
+              version in fp32 against fp64, recorded); in fp32 at 128^3 and
+              64^3 (3D) device ms through the window and with the global
+              atomics alone, the plain version's ms, the bound from the
+              run's bytes and operations
+Where a phase checks the launch counters (main, mg, scenes, config4,
+solver_options, cubic, models, baselines, sparse, composed, batch,
+batch_solvers, sharded), it holds fused_block_diag's to the preconditioner
+builds too: one per Newton iteration under block-Jacobi (per batched
+iteration for a batch, on each sharded rank that holds particles), one per
+matrix-free multigrid level and build, none under an assembled hierarchy,
+L-BFGS or the explicit integrator.
 Phase 3 also holds both particle kernels with the cubic stencil (4 nodes per
 axis, every model) and the Neo-Hookean and linear-corotated linearize
 against their plain versions, phase 3b times the cubic kernels at 64^3 and
@@ -228,11 +249,16 @@ FP32_FLOPS = 67e12
 #     117, scatter 486: about 3,030 (fixed-corotated); plus 1,290 for the
 #     clamp's eigensolve (6 sweeps and the product back) where sym(A) is not
 #     positive definite, counted on each run's inputs
+#   block_diag: stencil 60, node weights 2 x 108, G = F V 54, the pair
+#     coefficients and the scale 20; per stencil node y = G^T gw 18, M in
+#     U's frame 30, U M 54, the scaled upper triangle of U M U^T 42 and its
+#     scatter 6: 150 a node, 4,050 over 27 nodes; about 4,400
 # With the cubic stencil the per-node terms (node weights 8, gather 18,
-# scatter 18 flops a node) grow from 27 to 64 nodes: apply about 3,230,
-# linearize about 4,690.
+# scatter 18 flops a node; the block diagonal's 158 a node) grow from 27 to
+# 64 nodes: apply about 3,230, linearize about 4,690, block_diag about 10,250.
 FLOPS_PER_PARTICLE = {("fused_apply", 3): 1600, ("fused_linearize", 3): 3030,
-                      ("fused_apply", 4): 3230, ("fused_linearize", 4): 4690}
+                      ("fused_apply", 4): 3230, ("fused_linearize", 4): 4690,
+                      ("fused_block_diag", 3): 4400, ("fused_block_diag", 4): 10250}
 CLAMP_FLOPS = 1290
 # Neo-Hookean and linear corotated are the two models the linearize kernel
 # gained with the cubic stencil; MODELS holds all four
@@ -307,7 +333,7 @@ def bound(nbytes, flops):
 
 def _per_particle_values(name, d):
     dd, pairs = d * d, 1 if d == 2 else 3
-    if name == "fused_apply":   # F, U, V, A, b+, b-, V0
+    if name in ("fused_apply", "fused_block_diag"):   # F, U, V, A, b+, b-, V0
         return 4 * dd + 2 * pairs + 1
     return dd + 3 + 3 * dd + 2 * pairs  # in: F, mu, lam, V0; out: U, V, A, b+, b-
 
@@ -317,6 +343,15 @@ def particle_kernel_bytes(name, n, touched, d, itemsize):
     per-particle SoA arrays, and the grid vector read (w or v) and written
     (df or f) over the `touched` nodes, the unique stencil nodes."""
     return n * (d + _per_particle_values(name, d)) * itemsize + 2 * touched * d * itemsize
+
+
+def block_diag_bytes(n, touched, d, itemsize, tiles=0):
+    """Bytes of one block-diagonal launch, each input read once and each
+    output written once: x and the per-particle SoA arrays, the upper
+    triangle of K (d (d + 1) / 2 values) over the `touched` nodes, and the
+    lookup entries of `tiles` tiles on the tile grid."""
+    return (n * (d + _per_particle_values("fused_block_diag", d)) * itemsize
+            + touched * d * (d + 1) // 2 * itemsize + 4 * tiles)
 
 
 def table_kernel_bytes(name, n, n_nodes, d, itemsize):
@@ -802,7 +837,7 @@ def launch_counts():
     from hot_tpu_torch.utils.timing import TRACER
 
     return {k: TRACER.counts["launches." + k] for k in ("fused_apply", "fused_linearize",
-                                                        "bsr_spmv")}
+                                                        "bsr_spmv", "fused_block_diag")}
 
 
 def counted(fn):
@@ -839,15 +874,28 @@ def composed_apply_launches(mgc, newton, cg):
     return solves + mgc.power_iters * sum(newton) + per_vcycle * solves
 
 
+def block_diag_launches(newton, mgc=None):
+    """fused_block_diag launches for these Newton counts: one preconditioner
+    build per Newton iteration that solves, which under block-Jacobi (mgc
+    None) launches once, and under the multigrid once per matrix-free level
+    (every level of the default multigrid; the levels above
+    assembled_from_level of an assembled one)."""
+    if mgc is None:
+        return sum(newton)
+    return (mgc.assembled_from_level if mgc.assembled else mgc.levels) * sum(newton)
+
+
 def expected_launches(newton, cg, minres=False, mgc=None):
     """The launches the step's code implies for these Newton and inner
     iteration counts: one linearize per Newton iterate (and one at v0); one
     apply per inner iteration plus one per solve for the initial residual
     (MINRES: two, the second for the first preconditioned residual); the
-    SpMVs of config 3 (mgc) or none."""
+    SpMVs of config 3 (mgc) or none; the block-diagonal launches of the
+    preconditioner builds (block_diag_launches)."""
     return {"fused_apply": sum(cg) + (2 if minres else 1) * sum(newton),
             "fused_linearize": sum(k + 1 for k in newton),
-            "bsr_spmv": 0 if mgc is None else mg_spmv_launches(mgc, newton, cg)[2]}
+            "bsr_spmv": 0 if mgc is None else mg_spmv_launches(mgc, newton, cg)[2],
+            "fused_block_diag": block_diag_launches(newton, mgc)}
 
 
 def step_record(sim, stats, seconds):
@@ -1673,14 +1721,16 @@ def batched_launches(kind, mgc, stats, cg_calls):
     one for the initial residual (MINRES: two), through bsr_spmv for the
     explicit BSR; and the multigrid's SpMVs and matrix-free level applies
     (mg_spmv_launches, composed_apply_launches) over the batched Newton
-    iterations and CG iterations."""
+    iterations and CG iterations; one block-diagonal launch per batched
+    build and matrix-free level (block_diag_launches), none for L-BFGS."""
     newton = [max(s.newton_iters) for s in stats]
     cg = [max(i) for i in cg_calls]
     solves = len(cg_calls)
     out = {"fused_linearize": sum(k + 1 for k in newton), "fused_apply": sum(cg) + solves,
-           "bsr_spmv": 0}
+           "bsr_spmv": 0, "fused_block_diag": block_diag_launches(
+               newton, mgc if kind in ("config3", "composed") else None)}
     if kind == "lbfgs":
-        out["fused_apply"] = 0
+        out["fused_apply"] = out["fused_block_diag"] = 0
     elif kind == "minres":
         out["fused_apply"] = sum(cg) + 2 * solves
     elif kind == "explicit_bsr":
@@ -2107,6 +2157,13 @@ def sharded_phase(rng, card):
         assert got["launches_all_ranks"]["fused_linearize"] > 0, row
         if label == "config3_fp64":
             assert got["launches_all_ranks"]["bsr_spmv"] > 0, row
+        # block-Jacobi: one block-diagonal launch per build on each rank that
+        # holds particles (a retried attempt's builds are not in the counts);
+        # config 3 assembles every level and launches none
+        if not got["retries"]:
+            builds = sum(got["newton"]) if label == "bj_fp64" else 0
+            assert [r["fused_block_diag"] for r in got["launches_per_rank"]] == [
+                builds if p else 0 for p in got["particles_per_rank"]], row
         out[label] = row
         del sim, scene, lone
         torch.cuda.empty_cache()
@@ -2153,6 +2210,155 @@ def sharded_phase(rng, card):
     assert refuse.returncode != 0 and said, refuse.stderr[-3000:]
     out["launches"] = ranks["config3_fp64"]["launches_all_ranks"]
     out["bj_launches"] = ranks["bj_fp64"]["launches_all_ranks"]
+    return out
+
+
+# ---- the block-diagonal kernel on the main path's shape
+
+# the cubic cases' floor on a block's scale, in units of the largest
+# block's: a cubic fringe block comes out of the weights' cancelling tails,
+# which nvcc's FMA contraction rounds differently from the plain version
+# (tests/test_torch_kernels_card.py has the readings)
+CUBIC_FLOOR = 1e-4
+
+
+def block_errors(got, want, floor=0.0):
+    """(worst, largest absolute): each node's (d, d) block's error over its
+    largest entry, floored at `floor` times the largest block's; a block
+    with no contribution must be exactly 0 (worst inf otherwise)."""
+    err = (got - want).abs().amax((-1, -2)).double()
+    scale = want.abs().amax((-1, -2)).double()
+    scale = torch.where(scale > 0, scale.clamp(min=floor * float(scale.max())), scale)
+    ratio = torch.where(scale > 0, err / scale.clamp(min=1e-300),
+                        torch.where(err > 0, math.inf, 0.0))
+    return float(ratio.max()), float(err.max())
+
+
+def block_diag_args(c):
+    """fused_block_diag's arguments on input set c (its tile grid if it has
+    one): the Hessian context of the plain linearize at c's v."""
+    from hot_tpu_torch.ops import fused_linearize as fl
+
+    tg = c.get("tgrid")
+    ctx = fl.fused_linearize_plain(*lin_args(c), tg)[1:]
+    return (c["x_soa"], c["dx"], c["res"], c["F_soa"], *ctx, c["V0"], DT, c["kernel"], tg)
+
+
+def check_block_diag(c, timing, floor=0.0):
+    """fused_block_diag_cuda on input set c against fused_block_diag_plain
+    on the same card tensors, each block within TOL of its largest entry
+    (floored as block_errors); the launches of the checked call (counters
+    read just before and after it) and its window counters. With `timing`,
+    device ms per launch through the window and with the global atomics
+    alone (window_nodes 0), the plain version's ms, and the bound from this
+    run's bytes (block_diag_bytes over the touched nodes) and operations."""
+    from hot_tpu_torch.ops import fused_apply as fa
+    from hot_tpu_torch.ops import fused_block_diag as fbd
+    from hot_tpu_torch.ops.bspline import kernel_width
+
+    args = block_diag_args(c)
+    tg, d, dtype = c.get("tgrid"), c["d"], c["v"].dtype
+    want = fbd.fused_block_diag_plain(*args)
+    fbd.window_stats = fa.new_window_stats("cuda")
+    try:
+        before = launch_counts()
+        got = fbd.fused_block_diag_cuda(*args)
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        st = fa.read_window_stats(fbd.window_stats)
+    finally:
+        fbd.window_stats = None
+    worst, abs_err = block_errors(got, want, floor)
+    row = dict(grid="tile grid" if tg is not None else "dense", kernel=c["kernel"], d=d,
+               dtype=str(dtype), particles=c["n"], nodes=fbd.nodes_of(c["res"], tg),
+               rel_err=worst, rel_err_no_floor=block_errors(got, want)[0], floor=floor,
+               max_abs_err=abs_err, limit=TOL[dtype]["apply"], launches=launches,
+               overflow_share=st["overflow_blocks"] / max(st["blocks"], 1),
+               global_atomics=st["global_atomics"])
+    bad = not worst <= row["limit"] or launches != dict(
+        {k: 0 for k in launches}, fused_block_diag=1)
+    if timing:
+        touched = int(torch.unique(c["st"].node_ids).numel())
+        nbytes = block_diag_bytes(c["n"], touched, d, got.element_size(),
+                                  0 if tg is None else tg.n_active)
+        flops = c["n"] * FLOPS_PER_PARTICLE["fused_block_diag", kernel_width(c["kernel"])]
+        row["ms"], row["ms_source"] = device_ms(lambda: fbd.fused_block_diag_cuda(*args), 50,
+                                                "fused_block_diag_kernel")
+        row["global_atomics_ms"] = device_ms(
+            lambda: fbd.fused_block_diag_cuda(*args, window_nodes=0), 20,
+            "fused_block_diag_kernel")[0]
+        row["plain_ms"] = cuda_time_ms(lambda: fbd.fused_block_diag_plain(*args), 3)
+        row.update(touched_nodes=touched, bytes=nbytes, flops=flops,
+                   bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   flops_bound_ms=flops / FP32_FLOPS * 1e3,
+                   launch_config=fa.launch_config(d, kernel_width(c["kernel"]),
+                                                  got.element_size(), fbd.upper_values(d)))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row, bad
+
+
+def cubic_witness(c64):
+    """The cubic stencil's readings on one input set (fp64, and the same
+    values in fp32): the kernel against the plain version in each
+    precision, and the plain version in fp32 against its fp64 self, each
+    without and with CUBIC_FLOOR (block_errors)."""
+    from hot_tpu_torch.ops import fused_block_diag as fbd
+
+    c32 = {k: v.float() if torch.is_tensor(v) and v.is_floating_point() else v
+           for k, v in c64.items()}
+    out = {}
+    for label, c in (("fp64", c64), ("fp32", c32)):
+        args = block_diag_args(c)
+        out[label] = (fbd.fused_block_diag_cuda(*args), fbd.fused_block_diag_plain(*args))
+    pairs = {"kernel_vs_plain_fp64": out["fp64"], "kernel_vs_plain_fp32": out["fp32"],
+             "plain_fp32_vs_plain_fp64": (out["fp32"][1].double(), out["fp64"][1])}
+    return {k: dict(no_floor=block_errors(g, w)[0], floor=block_errors(g, w, CUBIC_FLOOR)[0])
+            for k, (g, w) in pairs.items()}
+
+
+def block_diag_phase(rng, card):
+    """Phase 22 (see the module doc): the block-diagonal kernel on the 128^3
+    bar (the tile grid, as the benchmark's block-Jacobi cell runs it, and
+    the dense grid) in fp32 and fp64, the 64^3 bar (quadratic and cubic) and
+    the 64^2 drop (cubic), fp32 and fp64, against the plain version on the
+    same card tensors; fp32 times at 128^3 and 64^3; the cubic cases'
+    readings without and with their floor (cubic_witness). Returns the rows
+    the kernels line reads."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        timing = dtype == torch.float32
+        c = kernel_inputs("twisting_bar_3d", "fixed_corotated", dtype, rng, SPARSE_RES)
+        row, bad = check_block_diag(c, timing)
+        emit("block_diag", card=card, scene="twisting_bar_3d", res=SPARSE_RES, **row)
+        if bad:
+            raise AssertionError(f"block-diagonal kernel disagrees: {row}")
+        out["dense_128", str(dtype)] = row
+        compact_inputs(c, rng)
+        row, bad = check_block_diag(c, timing)
+        row.update(tiles=c["tgrid"].n_active)
+        emit("block_diag", card=card, scene="twisting_bar_3d", res=SPARSE_RES, **row)
+        if bad:
+            raise AssertionError(f"block-diagonal kernel disagrees: {row}")
+        out["compact_128", str(dtype)] = row
+        del c
+        torch.cuda.empty_cache()
+    for scene_name, kernel in (("twisting_bar_3d", "quadratic"), ("twisting_bar_3d", "cubic"),
+                               ("block_drop_2d", "cubic")):
+        floor = CUBIC_FLOOR if kernel == "cubic" else 0.0
+        c64 = kernel_inputs(scene_name, "fixed_corotated", torch.float64, rng, 64,
+                            kernel=kernel)
+        witness = cubic_witness(c64) if kernel == "cubic" else None
+        for dtype in (torch.float32, torch.float64):
+            c = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+                 for k, v in c64.items()}
+            row, bad = check_block_diag(c, dtype == torch.float32 and c["d"] == 3, floor)
+            emit("block_diag", card=card, scene=scene_name, res=64, **row,
+                 **({"witness": witness} if witness and dtype == torch.float64 else {}))
+            if bad:
+                raise AssertionError(f"block-diagonal kernel disagrees: {row}")
+            out[scene_name, kernel, str(dtype)] = row
+        del c64, c
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2310,6 +2516,7 @@ def main(argv=None):
     assert launches["fused_linearize"] == sum(k + 1 for k in newton), (launches, newton)
     assert launches["fused_apply"] == sum(cg) + sum(newton), (launches, newton, cg)
     assert launches["bsr_spmv"] == 0, launches
+    assert launches["fused_block_diag"] == sum(newton), (launches, newton)
     vmax = max(s.max_velocity for s in stats)
     assert 1.0 < vmax < 3.0, vmax   # clamps spin at 4 pi rad/s, 0.14 from the axis: ~1.76
 
@@ -2337,6 +2544,7 @@ def main(argv=None):
     assert mg_launches["fused_linearize"] == sum(k + 1 for k in newton), (mg_launches, newton)
     assert mg_launches["fused_apply"] == sum(cg) + sum(newton), (mg_launches, newton, cg)
     assert mg_launches["bsr_spmv"] == want_spmv > 0, (mg_launches, want_spmv)
+    assert mg_launches["fused_block_diag"] == 0, mg_launches
     assert len(build_ms) == sum(newton), (len(build_ms), newton)
     mg_counts = dict(mg_launches)
 
@@ -2611,7 +2819,8 @@ def main(argv=None):
     per_build, per_vcycle, want_apply = mf_mg_apply_launches(cfg_mg.solver.multigrid, newton_all,
                                                              cg_all)
     want = {"fused_apply": want_apply, "fused_linearize": sum(k + 1 for k in newton_all),
-            "bsr_spmv": 0}
+            "bsr_spmv": 0,
+            "fused_block_diag": block_diag_launches(newton_all, cfg_mg.solver.multigrid)}
     row.update(preconditioner="default multigrid (matrix-free levels)", dtype=str(torch.float64),
                launches=run_launches, launches_expected=want, apply_per_build=per_build,
                apply_per_vcycle=per_vcycle, retried_attempts=att.retried(stats))
@@ -2669,7 +2878,7 @@ def main(argv=None):
     row = step_record(sim, stats, seconds)
     # one gradient (the linearize's residual) at v0 and one per iteration
     want = {"fused_apply": 0, "fused_linearize": sum(k + 1 for k in row["newton"]),
-            "bsr_spmv": 0}
+            "bsr_spmv": 0, "fused_block_diag": 0}
     row.update(nonlinear="lbfgs", scene="twisting_bar_3d", res=32, launches=run_launches,
                launches_expected=want, backtracks=[s.ls_backtracks for s in stats])
     emit("baselines", card=card, **row)
@@ -2929,6 +3138,10 @@ def main(argv=None):
     # ---- 21 sharded: the slab decomposition, D ranks sharing the card
     sharded = sharded_phase(rng, card)
     lap("sharded")
+
+    # ---- 22 block_diag: the block-diagonal kernel against its plain version
+    block_diag = block_diag_phase(rng, card)
+    lap("block_diag")
     emit("runtime", seconds=laps, total_seconds=sum(laps.values()))
 
     spmv = summary["spmv"]
@@ -3015,6 +3228,18 @@ def main(argv=None):
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": None}
 
+    def block_diag_row(key, name, launches_on_path):
+        """The block-diagonal kernel's row: launches on its main path
+        (`launches_on_path`), its error and times (fp32) from phase
+        block_diag."""
+        row = block_diag[key]
+        return {"name": name, "route": "cuda",
+                "source": "hot_tpu_torch/csrc/fused_block_diag.cu", "replaces": None,
+                "reference": "hot_tpu/sim/objective.py:elastic_block_diag (plain jnp)",
+                "launches": launches_on_path, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [
         particle_row("fused_linearize", "quadratic"),
         particle_row("fused_apply", "quadratic"),
@@ -3041,6 +3266,14 @@ def main(argv=None):
          "bound_by": batch_spmv["bound_by"], "library_ms": batch_spmv["library_ms"]},
         slab_row("fused_linearize"),
         slab_row("fused_apply"),
+        # launches: block-Jacobi at 64^3 (phase main), with the cubic stencil
+        # (phase cubic) and on the 128^3 bar's tile grid (phase sparse)
+        block_diag_row(("twisting_bar_3d", "quadratic", str(torch.float32)), "fused_block_diag",
+                       launches["fused_block_diag"]),
+        block_diag_row(("twisting_bar_3d", "cubic", str(torch.float32)),
+                       "fused_block_diag_cubic", cubic_launches["fused_block_diag"]),
+        block_diag_row(("compact_128", str(torch.float32)), "fused_block_diag_compact",
+                       sparse_launches["block_jacobi"]["fused_block_diag"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // The B-spline stencil of a particle, recomputed from its position, and a
 // thread block's shared-memory window over the grid nodes that its particles
-// touch. Shared by fused_apply.cu and fused_linearize.cu.
+// touch. Shared by fused_apply.cu, fused_linearize.cu and
+// fused_block_diag.cu.
 //
 // Stencil, as hot_tpu_torch/ops/transfer.py:particle_stencil computes it, W
 // nodes per axis (W = 3 quadratic, W = 4 cubic): per axis the base node
@@ -46,6 +47,10 @@
 //      atomic) and stores its contribution there;
 //   4. each node's run is summed, and every non-zero sum goes to the grid
 //      with one global atomicAdd.
+//
+// A kernel that gathers nothing (fused_block_diag.cu) takes the same box,
+// sort and flush without the window's grid vector (scatter_frame), with V
+// values a node in the slots and in dst.
 //
 // A particle whose stencil is clamped at the grid's edge, and every particle
 // of a block whose box holds more than `window_nodes` nodes (a scrambled or
@@ -401,12 +406,13 @@ __device__ __forceinline__ void scatter(T* dst, const Map& map, const Stencil<T,
   });
 }
 
-// fn(window entry, grid entry) for every value of the box, the grid entry -1
-// where the node's tile is inactive. Dense grid: one warp per row of the box
-// along the last axis, the lanes over the row's ext[D-1] * D contiguous
-// values. Tile grid: one thread per run of a row inside one tile (at most
-// `tile` nodes, contiguous in memory), its slot looked up once.
-template <int D, bool Tiled, typename Fn>
+// fn(window entry, grid entry) for every value of the box, V values a node
+// (D for a grid vector), the grid entry -1 where the node's tile is
+// inactive. Dense grid: one warp per row of the box along the last axis, the
+// lanes over the row's ext[D-1] * V contiguous values. Tile grid: one thread
+// per run of a row inside one tile (at most `tile` nodes, contiguous in
+// memory), its slot looked up once.
+template <int D, bool Tiled, int V = D, typename Fn>
 __device__ __forceinline__ void for_each_window_entry(const Window<D>& win, const Grid<D>& g,
                                                       Fn&& fn) {
   if constexpr (Tiled) {
@@ -429,14 +435,14 @@ __device__ __forceinline__ void for_each_window_entry(const Window<D>& win, cons
       for (int c = c_lo; c < c_hi; ++c) {
         const int i = row * ext + (c - lo);
         const long long gi =
-            slot < 0 ? -1 : ((long long)slot * g.tile_nodes + local + c % g.tile) * D;
+            slot < 0 ? -1 : ((long long)slot * g.tile_nodes + local + c % g.tile) * V;
 #pragma unroll
-        for (int a = 0; a < D; ++a) fn(i * D + a, gi < 0 ? -1 : gi + a);
+        for (int a = 0; a < V; ++a) fn(i * V + a, gi < 0 ? -1 : gi + a);
       }
     }
     return;
   }
-  const int run = win.ext[D - 1] * D;
+  const int run = win.ext[D - 1] * V;
   const int rows = win.nodes / win.ext[D - 1];
   const int lane = threadIdx.x % kWarp;
   for (int row = threadIdx.x / kWarp; row < rows; row += blockDim.x / kWarp) {
@@ -448,7 +454,7 @@ __device__ __forceinline__ void for_each_window_entry(const Window<D>& win, cons
       r /= win.ext[a];
       stride *= g.res[a];
     }
-    for (int e = lane; e < run; e += kWarp) fn(row * run + e, node * D + e);
+    for (int e = lane; e < run; e += kWarp) fn(row * run + e, node * V + e);
   }
 }
 
@@ -525,16 +531,16 @@ __device__ __forceinline__ void place(const Shared<T, D>& sh, const Stencil<T, D
   });
 }
 
-// Step 4: each node's slots summed per component, each non-zero sum added to
-// dst; returns this thread's count of atomics.
-template <typename T, int D, bool Tiled>
+// Step 4: each node's slots (V values each) summed per component, each
+// non-zero sum added to dst; returns this thread's count of atomics.
+template <typename T, int D, bool Tiled, int V = D>
 __device__ __forceinline__ unsigned flush_slots(const Shared<T, D>& sh, T* dst,
                                                 const Window<D>& w, const Grid<D>& g) {
   unsigned count = 0;
-  for_each_window_entry<D, Tiled>(w, g, [&](int i, long long gi) {
-    const int node = i / D, a = i - node * D;
+  for_each_window_entry<D, Tiled, V>(w, g, [&](int i, long long gi) {
+    const int node = i / V, a = i - node * V;
     T v = T(0);
-    for (int r = sh.start[node], end = sh.start[node + 1]; r < end; ++r) v += sh.slots[r * D + a];
+    for (int r = sh.start[node], end = sh.start[node + 1]; r < end; ++r) v += sh.slots[r * V + a];
     if (v != T(0) && !(Tiled && gi < 0)) {
       atomicAdd(&dst[gi], v);
       ++count;
@@ -612,6 +618,105 @@ __device__ __forceinline__ void window_frame(const T* __restrict__ src, const T*
     if (windowed) place(sh, s, off, M);
     __syncthreads();
     atomics += flush_slots<T, D, Tiled>(sh, dst, win, grid);
+  }
+  if (stats != nullptr) record_window(stats, win, atomics);
+}
+
+// Shared memory of a scatter-only launch (a kernel that gathers no grid
+// vector), V values at each stencil node:
+//   T   slots[threads * W^D * V] the contributions, sorted by node
+//   int start[window_nodes + 1], cursor[window_nodes + 1], scan[threads / 32]
+template <typename T, int D, int W, int V>
+size_t scatter_window_bytes(int window_nodes, int threads) {
+  constexpr int S = StencilSize<D, W>::value;
+  return (size_t)threads * S * V * sizeof(T) +
+         (2 * ((size_t)window_nodes + 1) + threads / kWarp) * sizeof(int);
+}
+
+template <typename T, int D, int W, int V>
+__device__ __forceinline__ Shared<T, D> carve_scatter(unsigned char* smem, int window_nodes) {
+  constexpr int S = StencilSize<D, W>::value;
+  Shared<T, D> sh;
+  sh.win = nullptr;
+  sh.slots = reinterpret_cast<T*>(smem);
+  sh.start = reinterpret_cast<int*>(sh.slots + (size_t)blockDim.x * S * V);
+  sh.cursor = sh.start + window_nodes + 1;
+  sh.scan = sh.cursor + window_nodes + 1;
+  return sh;
+}
+
+// dst[node_k][a] += out_k[a], a < V, by global atomicAdd (the direct path of
+// a scatter-only kernel; an inactive node is skipped).
+template <typename T, int D, int W, int V, typename Map, typename Values>
+__device__ __forceinline__ void scatter_values(T* dst, const Map& map, const Stencil<T, D, W>& s,
+                                               const int off[D][W], Values&& values) {
+  for_each_node(s, off, [&](int index, const T* g) {
+    const int node = map(index);
+    if constexpr (Map::kMayMiss) {
+      if (node < 0) return;
+    }
+    T out[V];
+    values(g, out);
+#pragma unroll
+    for (int a = 0; a < V; ++a) atomicAdd(&dst[(long long)node * V + a], out[a]);
+  });
+}
+
+// Step 3 of a scatter-only kernel: each node's V values written straight
+// into the slot taken from the node's cursor.
+template <typename T, int D, int W, int V, typename Values>
+__device__ __forceinline__ void place_values(const Shared<T, D>& sh, const Stencil<T, D, W>& s,
+                                             const int off[D][W], Values&& values) {
+  for_each_node(s, off, [&](int node, const T* g) {
+    values(g, sh.slots + (long long)atomicAdd(&sh.cursor[node], 1) * V);
+  });
+}
+
+// The frame of a scatter-only particle kernel: with
+//   values(const T g[D], T out[V])
+// (g the weight gradient of one stencil node; run only for particles
+// p < n), each particle's V values at each of its stencil nodes summed into
+// dst (V values a node) through the block's counting sort, or by global
+// atomics where the box does not fit or the stencil is clamped. The box,
+// the sort and the flush are window_frame's, with no grid vector loaded.
+template <typename T, int D, int W, int V, bool Tiled, typename Values>
+__device__ __forceinline__ void scatter_frame(const T* __restrict__ x, T dx, const Grid<D>& grid,
+                                              T* __restrict__ dst, long long n, int window_nodes,
+                                              unsigned long long* __restrict__ stats,
+                                              unsigned char* smem, int* s_box, Values&& values) {
+  constexpr int S = StencilSize<D, W>::value;
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = p < n;
+  Stencil<T, D, W> s;
+  if (valid) stencil_of(x, n, p, dx, grid, s);
+  const bool inner = valid && unclamped(s);
+  const Window<D> win = block_window(s, inner, window_nodes, s_box);
+  const Shared<T, D> sh = carve_scatter<T, D, W, V>(smem, window_nodes);
+  if (win.fits)
+    for (int i = threadIdx.x; i <= win.nodes; i += blockDim.x) sh.start[i] = 0;
+  __syncthreads();
+
+  const bool windowed = win.fits && inner;
+  unsigned atomics = 0;
+  int off[D][W];
+  if (valid) {
+    node_offsets<T, D, W, Tiled>(s, win, grid, windowed, off);
+    if (windowed) {
+      count_nodes(sh, s, off);
+    } else if constexpr (Tiled) {
+      scatter_values<T, D, W, V>(dst, NodeMap{grid.lookup, grid.tile_nodes}, s, off, values);
+      atomics = S * V;
+    } else {
+      scatter_values<T, D, W, V>(dst, Local{}, s, off, values);
+      atomics = S * V;
+    }
+  }
+  __syncthreads();
+  if (win.fits) {
+    scan_counts(sh, win.nodes);
+    if (windowed) place_values<T, D, W, V>(sh, s, off, values);
+    __syncthreads();
+    atomics += flush_slots<T, D, Tiled, V>(sh, dst, win, grid);
   }
   if (stats != nullptr) record_window(stats, win, atomics);
 }

@@ -45,6 +45,12 @@ _SIGNATURES = {
                            + [ctypes.c_double, ctypes.c_int] + [_P] * 6
                            + [ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 3
                            + [_P, _P],
+    # (dtype, dim, width, x, dx, res, lookup, tile, F, U, V, A, bp, bm, V0, dt,
+    #  K, n, nodes, batch, threads, window_nodes, stats, stream)
+    "hot_fused_block_diag": [ctypes.c_int] * 3 + [_P, ctypes.c_double, _RES, _P, ctypes.c_int]
+                            + [_P] * 7
+                            + [ctypes.c_double, _P, ctypes.c_longlong, ctypes.c_longlong]
+                            + [ctypes.c_int] * 3 + [_P, _P],
     # (dtype, dim, vals, col_row, x, y, n_rows, K, stream)
     "hot_bsr_spmv": [ctypes.c_int, ctypes.c_int] + [_P] * 4
                     + [ctypes.c_longlong, ctypes.c_int, _P],

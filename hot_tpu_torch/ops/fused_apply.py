@@ -107,21 +107,27 @@ def soa(M, lead: int = 0):
     return M.flatten(lead + 1).transpose(-1, -2).contiguous()
 
 
-def window_bytes(d: int, width: int, itemsize: int, threads: int, window_nodes: int) -> int:
-    """Dynamic shared memory of a launch (csrc/particle_window.cuh:window_bytes)."""
+def window_bytes(d: int, width: int, itemsize: int, threads: int, window_nodes: int,
+                 per_node=None) -> int:
+    """Dynamic shared memory of a launch (csrc/particle_window.cuh:window_bytes):
+    the gathered window and the slots, d values a node each; with
+    `per_node`, a kernel that gathers nothing and scatters per_node values a
+    node (scatter_window_bytes): the slots alone."""
     s = width ** d
-    return ((window_nodes * d + threads * s * d) * itemsize
+    gathered, slot = (d, d) if per_node is None else (0, per_node)
+    return ((window_nodes * gathered + threads * s * slot) * itemsize
             + (2 * (window_nodes + 1) + threads // 32) * 4)
 
 
-def launch_config(d: int, width: int, itemsize: int):
-    """(threads, window_nodes) of a stencil kernel's launch: WINDOW_NODES and
-    the largest block, halving from BLOCK_THREADS, whose shared memory fits
-    SMEM_PER_BLOCK. Only the 3D cubic stencil in fp64 gets fewer (64): its
-    slots hold 64 nodes x 3 values per particle; in fp32 its 256 threads
-    take 222 KB, one block per SM."""
+def launch_config(d: int, width: int, itemsize: int, per_node=None):
+    """(threads, window_nodes) of a stencil kernel's launch (`per_node` as in
+    window_bytes): WINDOW_NODES and the largest block, halving from
+    BLOCK_THREADS, whose shared memory fits SMEM_PER_BLOCK. Only the 3D
+    cubic stencil in fp64 gets fewer (64): its slots hold 64 nodes x 3
+    values per particle; in fp32 its 256 threads take 222 KB, one block per
+    SM."""
     threads = BLOCK_THREADS
-    while window_bytes(d, width, itemsize, threads, WINDOW_NODES) > SMEM_PER_BLOCK:
+    while window_bytes(d, width, itemsize, threads, WINDOW_NODES, per_node) > SMEM_PER_BLOCK:
         threads //= 2
     return threads, WINDOW_NODES
 
@@ -162,14 +168,17 @@ def batch_of(grid_vec) -> int:
     return batch
 
 
-def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **params):
+def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", per_node=None,
+                **params):
     """check_inputs specs for a stencil kernel's arguments: the grid vector
-    (n_nodes, d) over res (the tile grid's (n_cnodes, d) with `tgrid`), x
-    (d, n), the per-particle SoA arrays and the tile lookup; every shape
-    with the grid vector's leading member dimension in a batch.
+    (n_nodes, d) over res (the tile grid's (n_cnodes, d) with `tgrid`), or
+    (n_nodes, per_node) for `per_node` values a node, x (d, n), the
+    per-particle SoA arrays and the tile lookup; every shape with the grid
+    vector's leading member dimension in a batch.
     Node offsets inside a member are 32-bit; the kernels offset each
     member's base pointers in 64 bits."""
-    d = grid_vec.shape[-1]
+    d = grid_vec.shape[-1] if per_node is None else x.shape[-2]
+    per_node = d if per_node is None else per_node
     n = x.shape[-1]
     lead = tuple(grid_vec.shape[:-2])
     batch_of(grid_vec)
@@ -184,14 +193,15 @@ def param_specs(grid_vec, x, res, tgrid=None, kernel: str = "quadratic", **param
             raise ValueError(f"the tile grid of res {tgrid.res} takes the quadratic stencil "
                              f"on that grid, got {kernel} on {tuple(res)}")
         tiled = math.prod(r * tgrid.tile for r in tgrid.tile_res)
-        if max(tgrid.n_cnodes, tiled) * d >= 2 ** 31:
+        if max(tgrid.n_cnodes, tiled) * per_node >= 2 ** 31:
             raise ValueError(f"tile grid {tuple(res)} too large for 32-bit node offsets")
-    elif n_nodes * d >= 2 ** 31:
+    elif n_nodes * per_node >= 2 ** 31:
         raise ValueError(f"grid {tuple(res)} too large for 32-bit node offsets")
     rows = {"F": d * d, "U": d * d, "V": d * d, "A": d * d,
             "b_plus": 1 if d == 2 else 3, "b_minus": 1 if d == 2 else 3}
-    specs = [("grid vector", grid_vec, lead + (n_nodes if tgrid is None else tgrid.n_cnodes, d),
-              grid_vec.dtype), ("x", x, lead + (d, n), grid_vec.dtype)]
+    specs = [("grid vector", grid_vec,
+              lead + (n_nodes if tgrid is None else tgrid.n_cnodes, per_node), grid_vec.dtype),
+             ("x", x, lead + (d, n), grid_vec.dtype)]
     if tgrid is not None:
         specs.append(("tile lookup", tgrid.lookup, lead + (tgrid.n_tiles_logical,),
                       torch.int32))

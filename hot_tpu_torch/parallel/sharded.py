@@ -30,6 +30,7 @@ import torch
 
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.fused_apply import fused_apply, soa
+from hot_tpu_torch.ops.fused_block_diag import fused_block_diag
 from hot_tpu_torch.parallel import halo as halo_mod
 from hot_tpu_torch.parallel.mesh import Mesh
 from hot_tpu_torch.sim import objective as obj_mod
@@ -150,14 +151,14 @@ def slab_apply(slab: Slab, mesh: Mesh, x_soa, dx: float, F_soa, hess: obj_mod.He
     return torch.where(active[:, None], out, w)
 
 
-def block_diag(slab: Slab, mesh: Mesh, st, F, ctx, V0, dt: float, grid_m, active, dim: int):
+def block_diag(slab: Slab, mesh: Mesh, x_soa, dx: float, F_soa, hess: obj_mod.HessianState,
+               V0, dt: float, grid_m, active):
     """Per-node (d, d) blocks of M + dt^2 K on the owned nodes: the elastic
-    blocks scattered over the extended slab and folded, the mass added."""
-    ones = torch.ones(slab.n_ext, dtype=torch.bool, device=F.device)
-    K = obj_mod.elastic_block_diag(st, F, ctx, V0, dt, torch.zeros_like(ones, dtype=F.dtype),
-                                   ones, dim)
-    K = fold(slab, mesh, K)
-    eye = torch.eye(dim, dtype=F.dtype, device=F.device)
+    blocks of the rank's particles (x_soa in the extended slab's frame)
+    scattered over the extended slab and folded, the mass added."""
+    K = fold(slab, mesh, fused_block_diag(x_soa, dx, slab.ext_res, F_soa, hess.U, hess.V, hess.A,
+                                          hess.b_plus, hess.b_minus, V0, dt))
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     return torch.where(active[:, None, None], grid_m[:, None, None] * eye + K, eye)
 
 

@@ -235,8 +235,8 @@ def build_precond(hier: SMGStatic, F_n, hess: obj_mod.HessianState, V0, dt: floa
                 mat = bsr_mod.assemble_hessian(mat, level.stencil, F_n, ctx, V0, dt, mass)
             D = _assembled_diag(level, mat, hier.galerkin, mesh, dim)
         else:
-            D = block_diag(slab, mesh, level.stencil, F_n, ctx, V0, dt, level.grid_m,
-                            level.active, dim)
+            D = block_diag(slab, mesh, level.x_soa, level.dx, pre.F_soa, hess, V0, dt,
+                           level.grid_m, level.active)
             D = mg_mod._floor_fp32_diag(D)
         mats.append(mat)
         Dinv = obj_mod.sym_block_inv(D)

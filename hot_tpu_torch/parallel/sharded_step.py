@@ -172,8 +172,8 @@ def sharded_step(ps: ParticleState, dt: float, t: float, *, mesh: Mesh, cfg: Sim
         build_precond, precond = (lambda h: None), (lambda pre, r: r * inv_mj[:, None])
     elif sol.preconditioner == "block_jacobi":
         def build_precond(h):
-            return obj_mod.sym_block_inv(block_diag(slab, mesh, st, ps.F, h.context(dim), ps.V0,
-                                                    dt, grid_m, active, dim))
+            return obj_mod.sym_block_inv(block_diag(slab, mesh, x_soa, dx, F_soa, h, ps.V0, dt,
+                                                    grid_m, active))
 
         precond = lambda Dinv, r: torch.einsum("nij,nj->ni", Dinv, r)  # noqa: E731
     else:

@@ -6,9 +6,11 @@ and characteristic norm the Newton/CG layer needs. The per-particle work of
 the two hot calls goes through the fused kernels:
 
   * ``linearize`` (once per Newton iteration) -> ``ops.fused_linearize``;
-  * ``multiply`` (once per CG iteration)      -> ``ops.fused_apply``.
+  * ``multiply`` (once per CG iteration)      -> ``ops.fused_apply``;
+  * ``elastic_block_diag`` (block-Jacobi's build, once per Newton
+    iteration)                                -> ``ops.fused_block_diag``.
 
-Both dispatch on the tensors' device (plain PyTorch on the CPU, the CUDA
+All three dispatch on the tensors' device (plain PyTorch on the CPU, the CUDA
 kernel on the card). The kernels compute the particles' stencil (quadratic
 or cubic, ``ObjectiveContext.kernel``) from their positions; positions and
 deformation gradients are kept in the kernels' structure-of-arrays layout
@@ -29,7 +31,6 @@ batch, and every reduction (``cn_norm``, ``energy``) is per member.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -37,8 +38,8 @@ import torch
 from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.ops import transfer
 from hot_tpu_torch.ops.fused_apply import aos_mat, fused_apply, soa
+from hot_tpu_torch.ops.fused_block_diag import fused_block_diag
 from hot_tpu_torch.ops.fused_linearize import fused_linearize
-from hot_tpu_torch.ops.svd import eigh_sym
 
 
 class ObjectiveContext(NamedTuple):
@@ -166,52 +167,16 @@ def multiply(obj: ObjectiveContext, hess: HessianState, w):
                                  obj.grid_m, obj.active, w, obj.kernel, obj.tgrid)
 
 
-# particles per block-diagonal chunk: bounds each (chunk, s, d, d)
-# temporary at 2^24 values (unchunked, one is 6.2 GB in fp64 at 256^3)
-_BLOCK_DIAG_BUDGET = 2 ** 24
-
-
-def elastic_block_diag(stencil, F_n, ctx: cm.HessianContext, V0, dt: float,
-                       grid_m, active, dim: int):
-    """Per-node (d, d) diagonal blocks of M + dt^2 K (HOT's --Ainv).
-
-    The SPD-projected diagonal-space dP/dF is exactly d + 2 n_pairs rank-1
-    modes, so particle p's block at its stencil node k is
-      B_k = dt^2 V0 sum_m lam_m z_m(k) z_m(k)^T,
-    with y_k = V^T F^T gw_k and
-      z_m = U (Q e_m o y_k)            lam_m = eig_m(A)   (normal modes)
-      z   = (U_i y_j +- U_j y_i)/sqrt2  lam = b-/b+       (pair modes).
-    Computed and scattered in chunks of particles; a batch's members are
-    one particle set over their stacked grids (the stencil's member offsets).
-    """
-    d = dim
-    lead, n_nodes = grid_m.shape[:-1], grid_m.shape[-1]
-    if lead:
-        stencil = transfer.Stencil(*(t.flatten(0, 1) for t in stencil))
-        F_n, V0 = F_n.flatten(0, 1), V0.flatten(0, 1)
-        ctx = cm.HessianContext(*(t.flatten(0, 1) for t in ctx))
-    n, s = stencil.wn.shape
-    K = torch.zeros((math.prod(lead) * n_nodes, d * d), dtype=F_n.dtype, device=F_n.device)
-    chunk = max(1, _BLOCK_DIAG_BUDGET // (s * d * d))
-    inv_sqrt2 = 0.7071067811865476
-    for lo in range(0, n, chunk):
-        sl = slice(lo, min(n, lo + chunk))
-        U, V, A, b_plus, b_minus = (t[sl] for t in ctx)
-        g = torch.einsum("pkb,pba->pka", stencil.gwn[sl], F_n[sl])   # F^T gw_k
-        y = torch.einsum("pka,pac->pkc", g, V)
-        w_eig, Q = eigh_sym(A)
-        lam_scale = (dt * dt) * V0[sl]
-        z = torch.einsum("pec,pcm,pkc->pkme", U, Q, y)              # (c, s, d, d)
-        B = torch.einsum("pm,pkma,pkmb->pkab", lam_scale[:, None] * w_eig, z, z)
-        for k_p, (i, j) in enumerate(cm._pairs(d)):
-            Ui, Uj = U[:, None, :, i], U[:, None, :, j]              # (c, 1, d)
-            yi, yj = y[:, :, i, None], y[:, :, j, None]              # (c, s, 1)
-            for b, sign in ((b_minus[:, k_p], 1.0), (b_plus[:, k_p], -1.0)):
-                zm = (Ui * yj + sign * Uj * yi) * inv_sqrt2
-                B = B + (lam_scale * b)[:, None, None, None] * zm[..., :, None] * zm[..., None, :]
-        K.index_add_(0, stencil.node_ids[sl].reshape(-1), B.reshape(-1, d * d))
-    eye = torch.eye(d, dtype=K.dtype, device=K.device)
-    D = grid_m[..., None, None] * eye + K.reshape(lead + (n_nodes, d, d))
+def elastic_block_diag(x_soa, dx: float, res, F_soa, hess: HessianState, V0, dt: float,
+                       grid_m, active, kernel: str = "quadratic", tgrid=None):
+    """Per-node (d, d) diagonal blocks of M + dt^2 K (HOT's --Ainv): the
+    elastic blocks of ``ops.fused_block_diag`` (one launch on the card), the
+    mass added and the identity on inactive nodes. The grid (dx, res) may
+    be any matrix-free multigrid level's, as in ``elastic_hessian_apply``."""
+    K = fused_block_diag(x_soa, dx, res, F_soa, hess.U, hess.V, hess.A, hess.b_plus,
+                         hess.b_minus, V0, dt, kernel, tgrid)
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    D = grid_m[..., None, None] * eye + K
     return torch.where(active[..., None, None], D, eye)
 
 

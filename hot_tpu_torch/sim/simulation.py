@@ -225,8 +225,9 @@ def _newton_update(model, objective: obj_mod.ObjectiveContext, cfg: SimConfig,
         precond = lambda pstate, r: obj_mod.mass_precondition(objective, r)  # noqa: E731
     elif sol.preconditioner == "block_jacobi":
         def build_precond(hp):
-            D = obj_mod.elastic_block_diag(st, state.F, hp[0].context(dim), state.V0, dt,
-                                           grid_m, active, dim)
+            D = obj_mod.elastic_block_diag(objective.x_soa, dx, res, objective.F_soa, hp[0],
+                                           state.V0, dt, grid_m, active, objective.kernel,
+                                           objective.tgrid)
             return obj_mod.sym_block_inv(D)
 
         precond = lambda Dinv, r: torch.einsum("...ij,...j->...i", Dinv, r)  # noqa: E731

@@ -313,7 +313,7 @@ def _floor_fp32_diag(D):
     return D + torch.diag_embed(torch.clamp(floor - diag, min=0.0))
 
 
-def _level_smoother_data(level: MGLevel, mat, pre: MGPrecond, ctx, F_n, dt: float,
+def _level_smoother_data(level: MGLevel, mat, pre: MGPrecond, F_n, dt: float,
                          cfg: MultigridConfig, need_lmax: bool, dim: int):
     """One level's per-Newton smoother data: block-diagonal inverse and
     (Chebyshev) power-iteration lambda_max of the operator it smooths."""
@@ -324,8 +324,9 @@ def _level_smoother_data(level: MGLevel, mat, pre: MGPrecond, ctx, F_n, dt: floa
         mul, proj = _level_ops_rows(level, mat)
         v0 = free_rows[..., None].to(F_n.dtype).expand(free_rows.shape + (dim,))
     else:
-        D = obj_mod.elastic_block_diag(level.stencil, F_n, ctx, pre.V0, dt, level.grid_m,
-                                       level.active, dim)
+        D = obj_mod.elastic_block_diag(level.x_soa, level.dx, level.res, pre.F_soa, pre.hess,
+                                       pre.V0, dt, level.grid_m, level.active, level.kernel,
+                                       level.tgrid)
         D = _floor_fp32_diag(D)
         mul = lambda w: level_multiply(level, pre, dt, w)  # noqa: E731
         proj = lambda r: level_project(level, r)  # noqa: E731
@@ -392,7 +393,7 @@ def build_precond(mg: MGStatic, F_n, hess: obj_mod.HessianState, V0, dt: float,
         need_lmax = cfg.smoother == "chebyshev" and (
             l < n_levels - 1 or cfg.coarse_solver == "smoother")
         with span("mg.smoother_data"):
-            Dinv, lam = _level_smoother_data(level, mat, pre, ctx, F_n, dt, cfg, need_lmax, dim)
+            Dinv, lam = _level_smoother_data(level, mat, pre, F_n, dt, cfg, need_lmax, dim)
         diag_inv.append(Dinv)
         lmax.append(lam)
     chol = None

@@ -43,7 +43,8 @@ not. Two helpers mark the sites on the step's path:
     waits for the stream.
 
 The kernels' wrappers count their launches (``launches.fused_apply``,
-``launches.fused_linearize``, ``launches.bsr_spmv``). A site counts
+``launches.fused_linearize``, ``launches.bsr_spmv``,
+``launches.fused_block_diag``). A site counts
 whether its tensors live on the card or not; on the CPU the kernels' plain
 versions run in their place, launch nothing and build stencils, whose
 copies count.

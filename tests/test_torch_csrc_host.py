@@ -42,6 +42,7 @@ from hot_tpu_torch.models import constitutive as cm
 from hot_tpu_torch.models.constitutive import MODEL_REGISTRY
 from hot_tpu_torch.ops import cuda_lib
 from hot_tpu_torch.ops import fused_apply as fa
+from hot_tpu_torch.ops import fused_block_diag as fbd
 from hot_tpu_torch.ops.bspline import kernel_width
 from hot_tpu_torch.ops.bsr_spmv import bsr_spmv_plain
 from hot_tpu_torch.ops import fused_linearize as fl
@@ -565,6 +566,15 @@ def test_unsupported_dim_is_refused(host_lib):
                                             1, *[p] * 6, 1, 1, batch, 128, 0, None,
                                             None) != 0
     assert host_lib.hot_bsr_spmv(0, 4, *[z.data_ptr()] * 4, 1, 125, None) != 0
+    # the block-diagonal kernel: dim, block, width, a lookup without a tile
+    # size or with the cubic stencil, and the batch
+    for dim, width, lookup, tile, threads, batch in ((4, 3, None, 0, 128, 1),
+                                                     (3, 3, None, 0, 100, 1),
+                                                     (3, 5, None, 0, 128, 1), (3, 3, p, 0, 128, 1),
+                                                     (3, 4, p, 4, 128, 1), (3, 3, None, 0, 128, 0),
+                                                     (3, 3, None, 0, 128, 65536)):
+        assert host_lib.hot_fused_block_diag(0, dim, width, p, 1.0, res, lookup, tile, *[p] * 7,
+                                             DT, p, 1, 1, batch, threads, 0, None, None) != 0
 
 
 def _launch_pair(host_lib, c, model_name, width, batch, nodes, stats, tgrid=None):
@@ -681,3 +691,52 @@ def test_host_compiled_kernels_batched_tile_grid(host_lib, rng, d):
         for g in (got[0], got[-1]):
             assert float(g[b, n_own:].abs().max()) == 0
     assert fa.read_window_stats(stats[0])["blocks"] > 3
+
+
+BLOCK_DIAG_CASES = [("3d", torch.float64), ("3d", torch.float32), ("2d", torch.float64),
+                    ("2d", torch.float32), ("3d-cubic", torch.float64),
+                    ("2d-cubic", torch.float32), ("3d-tiles", torch.float32),
+                    ("2d-tiles", torch.float64), ("3d-batch4", torch.float64),
+                    ("3d-batch4-tiles", torch.float32), ("3d-slab", torch.float64),
+                    ("3d-indefinite", torch.float64), ("2d-indefinite", torch.float32),
+                    ("3d-permuted", torch.float32)]
+
+
+@pytest.mark.parametrize("case,dtype", BLOCK_DIAG_CASES)
+def test_host_compiled_block_diag_matches_plain(host_lib, rng, case, dtype):
+    """The block-diagonal kernel against fused_block_diag_plain in the card
+    test's cases (tests/test_torch_kernels_card.py): through the window
+    (every box fits), through global atomics alone (window 0, every block
+    over it), and for `3d-permuted` with 64-thread blocks and a budget that
+    only the lattice-ordered blocks fit (both paths in one launch)."""
+    from test_torch_kernels_card import assert_blocks_close, block_diag_inputs
+
+    kw = block_diag_inputs(case, rng, dtype)
+    x, d = kw["x"], kw["x"].shape[-2]
+    n, members = x.shape[-1], x.shape[0] if x.ndim == 3 else 1
+    want = fbd.fused_block_diag_plain(**kw)
+    width = kernel_width(kw["kernel"])
+    threads, window_nodes = fa.launch_config(d, width, x.element_size(), fbd.upper_values(d))
+    launches = [(threads, window_nodes, 0), (threads, 0, -(-n // threads) * members)]
+    if case == "3d-permuted":
+        boxes = _boxes(x.T, kw["dx"], kw["res"], 64, width)
+        budget = max(boxes[:(n // 2) // 64])
+        over = sum(b > budget for b in boxes)
+        assert 0 < over < len(boxes)
+        launches.append((64, budget, over))
+    lookup = (None, 0) if kw["tgrid"] is None else (_ptr(kw["tgrid"].lookup), kw["tgrid"].tile)
+    for threads, window, overflow in launches:
+        stats = torch.zeros(N_STATS, dtype=torch.int64)
+        K = torch.zeros(want.shape[:-2] + (fbd.upper_values(d),), dtype=dtype)
+        rc = host_lib.hot_fused_block_diag(
+            0 if dtype == torch.float32 else 1, d, width, _ptr(x), kw["dx"],
+            cuda_lib.int_array(kw["res"]), *lookup,
+            *(_ptr(kw[k]) for k in ("F", "U", "V", "A", "b_plus", "b_minus", "V0")), DT,
+            _ptr(K), n, K.shape[-2], members, threads, window, _ptr(stats), None)
+        assert rc == 0
+        assert_blocks_close(fbd.mirrored(K, d), want, TOL[dtype][0])
+        got = fa.read_window_stats(stats)
+        assert (got["blocks"], got["overflow_blocks"]) == (-(-n // threads) * members, overflow)
+        if kw["tgrid"] is not None:
+            # nothing lands in the dump row
+            assert float(K[..., -1, :].abs().max()) == 0

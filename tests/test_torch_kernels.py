@@ -19,6 +19,8 @@ through sign-invariant products u_i v_i^T, because the Pallas kernel takes
 the algebraic Jacobi angle and may flip column pairs.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,8 +30,11 @@ from hot_tpu.models import constitutive as jcm
 from hot_tpu.ops import pallas_apply, pallas_linearize
 from hot_tpu.ops import transfer as jtr
 from hot_tpu.sim import objective as jobj
+from hot_tpu_torch.models import constitutive as tcm
 from hot_tpu_torch.ops import fused_apply as tfa
+from hot_tpu_torch.ops import fused_block_diag as tfbd
 from hot_tpu_torch.ops import fused_linearize as tfl
+from hot_tpu_torch.ops import transfer as ttr
 from hot_tpu_torch.sim import objective as tobj
 from hot_tpu_torch.utils.timing import TRACER
 
@@ -143,9 +148,9 @@ def test_fused_linearize_plain_matches_pallas(rng, d, model_name):
 
 
 def _launches():
-    """The three kernels' launch counters (the tracer's)."""
+    """The four kernels' launch counters (the tracer's)."""
     return tuple(TRACER.counts["launches." + k]
-                 for k in ("fused_apply", "fused_linearize", "bsr_spmv"))
+                 for k in ("fused_apply", "fused_linearize", "bsr_spmv", "fused_block_diag"))
 
 
 def test_dispatch_is_by_device(rng):
@@ -173,7 +178,7 @@ def test_launches_count_only_real_launches(monkeypatch, n):
     from hot_tpu_torch.ops import cuda_lib
 
     fake = SimpleNamespace(hot_fused_apply=lambda *a: 0, hot_fused_linearize=lambda *a: 0,
-                           hot_bsr_spmv=lambda *a: 0)
+                           hot_bsr_spmv=lambda *a: 0, hot_fused_block_diag=lambda *a: 0)
     monkeypatch.setattr(cuda_lib, "load", lambda: fake)
     monkeypatch.setattr(cuda_lib, "stream_ptr", lambda device: 0)
     f64, res = torch.float64, (8, 8)
@@ -189,8 +194,74 @@ def test_launches_count_only_real_launches(monkeypatch, n):
                              SimpleNamespace(name="fixed_corotated"))
     tsp.bsr_spmv_cuda(torch.zeros((n, 3, 2, 2), dtype=f64),
                       torch.zeros((n, 3), dtype=torch.int32), grid)
+    tfbd.fused_block_diag_cuda(x, 0.125, res, F, *ctx, *pairs, per_particle[0], DT)
     after = _launches()
-    assert [b - a for a, b in zip(before, after)] == [int(n > 0)] * 3
+    assert [b - a for a, b in zip(before, after)] == [int(n > 0)] * 4
+
+
+def test_block_jacobi_build_launches_nothing_on_the_cpu(rng):
+    """elastic_block_diag on CPU tensors runs fused_block_diag_plain: the
+    blocks are its K plus the mass, and launches.fused_block_diag stays."""
+    p = objective_pair(SCENES[3], rng)
+    to = p.to
+    _, th = tobj.linearize(p.tmodel, to, torch.from_numpy(p.v))
+    before = TRACER.counts["launches.fused_block_diag"]
+    D = tobj.elastic_block_diag(to.x_soa, to.dx, to.res, to.F_soa, th, to.V0, DT, to.grid_m,
+                                to.active, to.kernel, to.tgrid)
+    assert TRACER.counts["launches.fused_block_diag"] == before
+    K = tfbd.fused_block_diag_plain(to.x_soa, to.dx, to.res, to.F_soa, *th, to.V0, DT)
+    eye = torch.eye(3, dtype=K.dtype)
+    assert torch.equal(D, torch.where(to.active[:, None, None], to.grid_m[:, None, None] * eye + K,
+                                      eye))
+
+
+def _u_frame_blocks(x, dx, res, F, U, V, A, b_plus, b_minus, V0, dt):
+    """The kernel's form of the blocks (csrc/fused_block_diag.cu), written
+    out in plain PyTorch: B_k = dt^2 V0 U M_k U^T with y_k = V^T F^T gw_k and
+    M_k = diag(y) A diag(y) + the pair terms, no eigensolve."""
+    d = x.shape[0]
+    st = ttr.particle_stencil(x.T, dx, res)
+    F, U, V, A = (tfa.aos_mat(t, d) for t in (F, U, V, A))
+    y = torch.einsum("pkb,pba,pac->pkc", st.gwn, F, V)
+    M = y[..., :, None] * A[:, None] * y[..., None, :]
+    for k, (i, j) in enumerate(tcm._pairs(d)):
+        half_sum = (0.5 * (b_minus[k] + b_plus[k]))[:, None]
+        half_diff = (0.5 * (b_minus[k] - b_plus[k]))[:, None]
+        M[..., i, i] += half_sum * y[..., j] ** 2
+        M[..., j, j] += half_sum * y[..., i] ** 2
+        M[..., i, j] += half_diff * y[..., i] * y[..., j]
+        M[..., j, i] += half_diff * y[..., i] * y[..., j]
+    B = (dt * dt * V0)[:, None, None, None] * (U[:, None] @ M @ U.transpose(-1, -2)[:, None])
+    K = torch.zeros((math.prod(res), d, d), dtype=x.dtype)
+    return K.index_add_(0, st.node_ids.reshape(-1), B.reshape(-1, d, d))
+
+
+@pytest.mark.parametrize("spd", [True, False], ids=["spd", "indefinite"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_u_frame_blocks_match_eigen_form(rng, d, spd):
+    """The identity the block-diagonal kernel rests on: its U-frame sum ==
+    fused_block_diag_plain's eigen-mode sum within 1e-12 of each block's
+    largest entry in fp64, for random SPD A with positive b+- and for
+    indefinite A with b+- of both signs (the unprojected context)."""
+    from test_torch_kernels_card import assert_blocks_close
+
+    n, res = 300, (8,) * d
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    x = t(rng.uniform(2.0 / 8, 6.0 / 8, (d, n)))
+    orth = lambda: t(np.linalg.qr(rng.standard_normal((n, d, d)))[0])  # noqa: E731
+    R = rng.standard_normal((n, d, d))
+    if spd:
+        A = R @ R.transpose(0, 2, 1) + 0.1 * np.eye(d)
+        bp, bm = rng.uniform(0.1, 2.0, (2, d * (d - 1) // 2, n))
+    else:
+        A = R + R.transpose(0, 2, 1)
+        bp, bm = rng.uniform(-1.0, 2.0, (2, d * (d - 1) // 2, n))
+    eig = np.linalg.eigvalsh(A)
+    assert bool((eig.min(-1) > 0).all()) if spd else bool((eig.min(-1) < 0).any())
+    F = t(np.eye(d) + 0.3 * rng.standard_normal((n, d, d)))
+    args = (x, 1.0 / 8, res, tfa.soa(F), tfa.soa(orth()), tfa.soa(orth()), tfa.soa(t(A)),
+            t(bp), t(bm), t(rng.uniform(0.5, 1.5, n)), DT)
+    assert_blocks_close(_u_frame_blocks(*args), tfbd.fused_block_diag_plain(*args), 1e-12)
 
 
 @pytest.fixture

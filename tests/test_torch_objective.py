@@ -57,8 +57,8 @@ def test_block_jacobi_matches_hot_tpu(rng, d):
     active = jo.grid_m > 0
     jD = jobj.elastic_block_diag(jo.stencil, jo.F_n, jh.ctx, jo.V0, DT, jo.grid_m,
                                  active, d)
-    tD = tobj.elastic_block_diag(to.stencil, to.F_n, th.context(d), to.V0, DT,
-                                 to.grid_m, to.active, d)
+    tD = tobj.elastic_block_diag(to.x_soa, to.dx, to.res, to.F_soa, th, to.V0, DT,
+                                 to.grid_m, to.active, to.kernel, to.tgrid)
     assert_close(tD, jD, TOL)
     assert_close(tobj.sym_block_inv(tD), jobj.sym_block_inv(jD), TOL)
     r = rng.standard_normal(p.v.shape)

@@ -13,10 +13,13 @@ collective loop, hot_tpu/parallel/mesh.py:32-51):
     adjoint, <exchange(a), b> = <a, fold(b)>, to 1e-12 at D = 2 and 4;
   * sharded_cg_solve of tests/test_sharded.py's impact system at D = 2:
     hot_tpu's iteration count, x within 3e-9 (the CG tolerance, not
-    rounding: the ranks sum halo contributions in another order).
+    rounding: the ranks sum halo contributions in another order);
+  * spawn's deadline: a rank that outlives it is killed, spawn raises in
+    time and leaves no live child.
 """
 
 import functools
+import time
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,8 @@ from jax.sharding import PartitionSpec as P
 from hot_tpu.parallel.halo import exchange_halo, fold_halo
 from hot_tpu.parallel.mesh import make_mesh
 from hot_tpu.parallel.sharded import partition_system, sharded_cg_solve
+
+import torch.multiprocessing as mp
 
 import torch_parallel_worker as worker
 from test_sharded import _impact_system
@@ -96,3 +101,15 @@ def test_sharded_cg_matches_hot_tpu(results, system):
     got = results[2]
     assert got["iters"] == int(iters) > 5
     np.testing.assert_allclose(got["x"], np.asarray(x), rtol=0, atol=3e-9)
+
+
+def test_spawn_deadline_kills_ranks(tmp_path):
+    """A rank that sleeps past a 2.5 s deadline (the other waits for it at
+    the barrier): spawn kills both, raises naming their exit codes, and
+    returns well before the sleep would have ended."""
+    before = set(mp.active_children())
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=r"exit codes \[-9, -9\]"):
+        worker.spawn([("sleep", 1, dict(seconds=120))], 2, tmp_path, deadline=2.5)
+    assert time.monotonic() - t0 < 30
+    assert not set(mp.active_children()) - before

@@ -6,13 +6,17 @@ hot_tpu_torch only: neither jax nor hot_tpu.
 ``spawn(cases, world, tmp_path)`` runs every case on `world` ranks once
 and returns rank 0's results. A case is (name, world size of its mesh,
 kwargs); the ranks beyond a case's world size sit it out (its mesh is a
-subgroup of the first ranks).
+subgroup of the first ranks). The ranks have `DEADLINE` seconds: past it
+they are killed and `spawn` raises, so a hung rank fails its test instead
+of holding the run to its clock.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
@@ -20,6 +24,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 F64 = torch.float64
+# seconds a spawn's ranks may take: several times the slowest file's
+# (tests/test_torch_sharded_step.py's 15 cases, about 80 s on one core)
+DEADLINE = 600.0
 
 
 def _mesh(world: int, groups):
@@ -124,12 +131,20 @@ def case_cli(mesh, argv):
     return dict(rc=main(argv))
 
 
-CASES = {"halo": case_halo, "cg": case_cg, "steps": case_steps, "cli": case_cli}
+def case_sleep(mesh, seconds):
+    """A rank that outlives the deadline (the test of spawn's deadline)."""
+    time.sleep(seconds)
+    return {}
 
 
-def _rank(rank, world, init, cases, out):
+CASES = {"halo": case_halo, "cg": case_cg, "steps": case_steps, "cli": case_cli,
+         "sleep": case_sleep}
+
+
+def _rank(rank, world, init, cases, out, deadline):
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=deadline))
     sizes = sorted({w for _, w, _ in cases if w > 1})
     groups = {w: (dist.group.WORLD if w == world else dist.new_group(list(range(w))))
               for w in sizes}
@@ -146,9 +161,24 @@ def _rank(rank, world, init, cases, out):
     dist.destroy_process_group()
 
 
-def spawn(cases, world: int, tmp_path):
-    """Run `cases` on `world` gloo ranks; rank 0's results, in order."""
+def spawn(cases, world: int, tmp_path, deadline: float = DEADLINE):
+    """Run `cases` on `world` gloo ranks; rank 0's results, in order.
+
+    A rank that fails fails the call (torch's ProcessContext.join stops the
+    others). Ranks still running `deadline` seconds after the start are
+    killed, and TimeoutError gives each rank's exit code."""
     out = os.path.join(str(tmp_path), "results.pkl")
-    mp.spawn(_rank, args=(world, f"file://{tmp_path}/rendezvous", cases, out), nprocs=world)
+    init = f"file://{tmp_path}/rendezvous"
+    ctx = mp.start_processes(_rank, args=(world, init, cases, out, deadline), nprocs=world,
+                             join=False)
+    end = time.monotonic() + deadline
+    while not ctx.join(timeout=max(0.0, end - time.monotonic())):
+        if time.monotonic() >= end:
+            for p in ctx.processes:
+                p.kill()
+            for p in ctx.processes:
+                p.join()
+            raise TimeoutError(f"{world} ranks still running after {deadline} s, killed; "
+                               f"exit codes {[p.exitcode for p in ctx.processes]}")
     with open(out, "rb") as fh:
         return pickle.load(fh)

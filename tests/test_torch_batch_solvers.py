@@ -28,7 +28,6 @@ import numpy as np
 import pytest
 import torch
 
-from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.sim import capacity as jcapacity
 from hot_tpu.sim.simulation import advance_one_step as j_advance
 from hot_tpu.sim.state import ParticleState as JState
@@ -43,7 +42,7 @@ from hot_tpu_torch.solver import multigrid as mg
 from hot_tpu_torch.utils.config import config_from_overrides as t_overrides
 
 from test_torch_batch import _batch_against_singles, _with_E
-from test_torch_ref import carry_state, one_torch_thread, t2n  # noqa: F401
+from test_torch_ref import carry_state, hot_tpu_scene, one_torch_thread, t2n  # noqa: F401
 
 CONFIG3 = {"solver.preconditioner": "multigrid", "solver.multigrid.levels": 3,
            "solver.multigrid.assembled": True, "solver.multigrid.coarse_solver": "direct"}
@@ -78,7 +77,7 @@ X_TOL = 1e-9
 def _drop_members(overrides, Es=VMAP_E, res=24):
     """hot_tpu's res^2 block drop carried into the port, the port's config
     and stress_state, one member per E."""
-    scene = jbuild("block_drop_2d", res=res, dtype=jnp.float64)
+    scene = hot_tpu_scene("block_drop_2d", res=res, dtype=jnp.float64)
     tscene = tbuild("block_drop_2d", device="cpu", res=res, dtype=torch.float64)
     cfg = t_overrides(tscene["cfg"], overrides)
     base = stress_state(carry_state(scene["state"]), cfg)

@@ -32,7 +32,6 @@ from hot_tpu.models import constitutive as jcm
 from hot_tpu.ops import bspline as jbs
 from hot_tpu.ops import pallas_apply, pallas_linearize
 from hot_tpu.ops import transfer as jtr
-from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.sim import Simulation as JSimulation
 from hot_tpu.sim import objective as jobj
 from hot_tpu.sim.simulation import advance_one_step as j_advance
@@ -56,8 +55,8 @@ from hot_tpu_torch.utils.config import config_from_overrides as t_overrides
 
 from reference_mpm import advance_one_step_ref
 from test_torch_multigrid import mg_system, torch_hess
-from test_torch_ref import (DT, assert_close, carry_state, objective_pair,  # noqa: F401
-                            one_torch_thread, t2n)
+from test_torch_ref import (DT, assert_close, carry_state, hot_tpu_scene,  # noqa: F401
+                            objective_pair, one_torch_thread, t2n)
 from test_torch_step import _impact_state
 
 TOL = 1e-10
@@ -171,7 +170,7 @@ def test_cubic_fused_apply_plain_matches_hot_tpu(rng, d):
 
 def test_cubic_golden_block_drop_matches_hot_tpu_and_reference():
     res, dt = 32, 4e-3
-    scene = jbuild("block_drop_2d", res=res, dtype=jnp.float64)
+    scene = hot_tpu_scene("block_drop_2d", res=res, dtype=jnp.float64)
     cfg = dataclasses.replace(scene["cfg"], transfer_kernel="cubic", solver=dataclasses.replace(
         scene["cfg"].solver, preconditioner="jacobi"))
     scene["cfg"] = cfg
@@ -204,7 +203,7 @@ def test_cubic_golden_block_drop_matches_hot_tpu_and_reference():
 def stressed_pair(name, overrides, jmodel=None, tmodel=None, **kw):
     """hot_tpu and port Simulations from one stressed fp64 state (the port's
     stress_state of hot_tpu's particles), with the same config overrides."""
-    scene = jbuild(name, dtype=jnp.float64, **kw)
+    scene = hot_tpu_scene(name, dtype=jnp.float64, **kw)
     tscene = tbuild(name, device="cpu", dtype=torch.float64, **kw)
     ts = stress_state(carry_state(scene["state"]), tscene["cfg"])
     js = JState(**{f: jnp.asarray(t2n(getattr(ts, f))) for f in FIELDS})

@@ -6,6 +6,9 @@ Tolerance 1e-10, relative to the largest entry of the reference: both
 packages run the same algorithm in fp64, and differ only in the rounding of
 reductions and of analytic versus autodiff derivatives (~1e-15). The
 Neo-Hookean and linear-corotated models and polar are held to 1e-12.
+
+hot_tpu's svd and eigh_sym run jitted (test_torch_ref.jitted_hot_tpu_svd):
+compiled once per worker and shape, every case reuses them.
 """
 
 import jax
@@ -16,14 +19,16 @@ import torch
 
 from hot_tpu.models import constitutive as jcm
 from hot_tpu.ops import bspline as jbs
-from hot_tpu.ops.svd import eigh_sym as j_eigh_sym, polar as j_polar, svd as j_svd
+from hot_tpu.ops.svd import polar as j_polar
 from hot_tpu_torch.models import constitutive as tcm
 from hot_tpu_torch.ops import bspline as tbs
 from hot_tpu_torch.ops import svd as tsvd
 
-from test_torch_ref import one_torch_thread  # noqa: F401
+from test_torch_ref import (JIT_EIGH_SYM, JIT_SVD, jitted_hot_tpu_svd,  # noqa: F401
+                            one_torch_thread)
 
 TOL = 1e-10
+pytestmark = pytest.mark.usefixtures("jitted_hot_tpu_svd")
 
 
 def close(got, want, tol=TOL):
@@ -48,7 +53,7 @@ def matrices(rng, n, d):
 @pytest.mark.parametrize("d", [2, 3])
 def test_svd_matches_hot_tpu(rng, d):
     F = matrices(rng, 64, d)
-    U, s, V = jax.vmap(j_svd)(jnp.asarray(F))
+    U, s, V = jax.vmap(JIT_SVD)(jnp.asarray(F))
     tU, ts, tV = tsvd.svd(torch.from_numpy(F))
     close(ts, s)
     close(tU, U)
@@ -75,7 +80,7 @@ def test_polar_matches_hot_tpu(rng, d):
 def test_eigh_sym_matches_hot_tpu(rng, d):
     M = rng.standard_normal((64, d, d))
     S = np.concatenate([M + M.transpose(0, 2, 1), np.broadcast_to(np.eye(d), (2, d, d))])
-    w, Q = jax.vmap(j_eigh_sym)(jnp.asarray(S))
+    w, Q = jax.vmap(JIT_EIGH_SYM)(jnp.asarray(S))
     tw, tQ = tsvd.eigh_sym(torch.from_numpy(S))
     close(tw, w)
     close(tQ, Q)

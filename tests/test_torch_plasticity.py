@@ -6,7 +6,8 @@ yield, inverted (det F < 0), expanded (tr eps > 0, the Drucker-Prager cone
 tip) and compressed, with per-particle Lame parameters over two decades and
 some yield stresses infinite. Projected F and the snow jp_ratio must agree
 within 1e-12 relative to the largest entry (the same arithmetic; only the
-summation order of three terms differs).
+summation order of three terms differs). hot_tpu's svd runs jitted
+(test_torch_ref.jitted_hot_tpu_svd).
 """
 
 import jax
@@ -20,9 +21,10 @@ from hot_tpu_torch.models import plasticity as tpl
 from hot_tpu_torch.models.constitutive import lame_parameters
 from hot_tpu_torch.ops.svd import svd
 
-from test_torch_ref import assert_close, one_torch_thread  # noqa: F401
+from test_torch_ref import assert_close, jitted_hot_tpu_svd, one_torch_thread  # noqa: F401
 
 TOL = 1e-12
+pytestmark = pytest.mark.usefixtures("jitted_hot_tpu_svd")
 MU, LAM = lame_parameters(1e4, 0.3)
 ALPHA = tpl.DruckerPrager.alpha_from_friction_angle(30.0)
 

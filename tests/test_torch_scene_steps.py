@@ -20,7 +20,6 @@ import numpy as np
 import pytest
 import torch
 
-from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.scenes import stress_state as j_stress
 from hot_tpu.sim import Simulation as JSimulation
 from hot_tpu.utils.config import config_from_overrides as j_over
@@ -32,7 +31,7 @@ from hot_tpu_torch.sim import simulation as tsim_mod
 from hot_tpu_torch.sim.difftest import run_difftest
 from hot_tpu_torch.utils.config import config_from_overrides as t_over
 
-from test_torch_ref import carry_state, one_torch_thread, t2n  # noqa: F401
+from test_torch_ref import carry_state, hot_tpu_scene, one_torch_thread, t2n  # noqa: F401
 
 DT = 2e-3
 
@@ -58,7 +57,7 @@ def step_pair(name, steps, monkeypatch, scene_kw, overrides=None, mag=8.0, dt=DT
     """Step hot_tpu and the port from hot_tpu's stress_state; check counts
     and x, F, Jp after every step. Returns the per-step (newton, cg) and the
     plastic shares."""
-    js = jbuild(name, dtype=jnp.float64, **scene_kw)
+    js = hot_tpu_scene(name, dtype=jnp.float64, **scene_kw)
     ts = tbuild(name, device="cpu", dtype=torch.float64, **scene_kw)
     start = j_stress(js["state"], js["cfg"], mag)
     overrides = overrides or {}

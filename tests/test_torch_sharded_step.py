@@ -4,7 +4,10 @@ fp64.
 
 The ranks are spawned once for the file (tests/torch_parallel_worker.py: 4
 processes over gloo, file:// rendezvous, one torch thread, no jax); every
-case runs there and hands back numpy. hot_tpu runs here on 2 CPU devices.
+case runs there and hands back numpy. hot_tpu runs here on 2 CPU devices,
+while the ranks run: each test computes its hot_tpu reference before it
+reads the ranks' results. The port's one-grid runs that several cases
+compare with are made once per worker.
 From tests/test_torch_sparse.py's stressed block_drop_2d (every step
 engages Newton, as an impact does):
 
@@ -35,7 +38,6 @@ import torch
 
 from hot_tpu.parallel import sharded_step as jss
 from hot_tpu.parallel.mesh import make_mesh
-from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.sim.state import ParticleState as JState
 from hot_tpu_torch.cli import main as tmain
 from hot_tpu_torch.parallel import distributed
@@ -49,7 +51,8 @@ from hot_tpu_torch.sim.state import FIELDS, state_from_numpy, stack_states
 from hot_tpu_torch.utils.config import config_from_overrides as t_overrides
 
 import torch_parallel_worker as worker
-from test_torch_ref import carry_state, one_torch_thread, t2n  # noqa: F401
+from test_torch_ref import (carry_state, hot_tpu_scene, one_torch_thread,  # noqa: F401
+                            shared, t2n)
 
 DT = 2e-3
 STEPS = 4
@@ -68,17 +71,22 @@ CLI = ["--scene", "block_drop_2d", "--frames", "1", "--quiet", "--device", "cpu"
 def _stressed(name, **kw):
     """hot_tpu's particles of the scene with the port's stress_state
     velocities, as numpy fields."""
-    scene = jbuild(name, dtype=jnp.float64, **kw)
+    scene = hot_tpu_scene(name, dtype=jnp.float64, **kw)
     ts = carry_state(scene["state"])
     return stress_state(ts, tbuild(name, device="cpu", res=kw.get("res", 16))["cfg"]).to_numpy()
 
 
-@pytest.fixture(scope="module")
-def inputs():
+@shared
+def _inputs():
+    drift = hot_tpu_scene("block_drop_2d", res=32, dtype=jnp.float64)["state"]
     return dict(drop=_stressed("block_drop_2d", res=24), drop32=_stressed("block_drop_2d", res=32),
                 bar=_stressed("twisting_bar_3d", res=16, ppc=2),
-                drift=carry_state(jbuild("block_drop_2d", res=32, dtype=jnp.float64)["state"])
-                .to_numpy())
+                drift=carry_state(drift).to_numpy())
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return _inputs()
 
 
 def _case(world, scene, fields, over=None, steps=STEPS, **kw):
@@ -106,8 +114,25 @@ def results(tmp_path_factory, inputs):
         "cli4": ("cli", 4, dict(argv=CLI + ["-o", str(tmp / "cli4"), "--set",
                                             "mesh.shape=(-1,)"])),
     }
-    got = worker.spawn(list(cases.values()), 4, tmp)
-    return dict(zip(cases, got)), tmp
+    ranks = worker.start(list(cases.values()), 4, tmp)
+    yield RankResults(list(cases), ranks), tmp
+    ranks.close()
+
+
+class RankResults:
+    """The ranks' results by case; the first read waits for the ranks."""
+
+    def __init__(self, names, ranks):
+        self.names, self.ranks = names, ranks
+
+    def __getitem__(self, name):
+        return dict(zip(self.names, self.ranks.join()))[name]
+
+
+@shared
+def _port_single_of(which, over, res):
+    """_port_single from the inputs named `which`, once per worker."""
+    return _port_single(_inputs()[which], dict(over), res)
 
 
 def _port_single(fields, over, res, steps=STEPS, dt=DT):
@@ -120,7 +145,7 @@ def _port_single(fields, over, res, steps=STEPS, dt=DT):
 
 
 def _hot_tpu_sharded(name, fields, over, steps, dt, **kw):
-    scene = jbuild(name, dtype=jnp.float64, **kw)
+    scene = hot_tpu_scene(name, dtype=jnp.float64, **kw)
     cfg = scene["cfg"]
     sol = cfg.solver
     if over:
@@ -143,7 +168,7 @@ def _hot_tpu_one_grid(fields, steps, dt):
     """hot_tpu's one-grid step under the 2-level quadrature multigrid."""
     from hot_tpu.sim import Simulation as JSimulation
 
-    scene = jbuild("block_drop_2d", dtype=jnp.float64, res=24)
+    scene = hot_tpu_scene("block_drop_2d", dtype=jnp.float64, res=24)
     sol = scene["cfg"].solver
     mgc = dataclasses.replace(sol.multigrid, levels=2, assembled=True, coarse_solver="direct",
                               coarsening="quadrature")
@@ -164,8 +189,8 @@ def test_sharded_step_matches_hot_tpu(results, inputs, case, over):
     (hot_tpu/parallel/sharded_mg.py:250), its one-grid hierarchy from every
     fine node's, so its sharded step parts from its one-grid step (by 8e-6
     in x here); the port's sharded hierarchy takes the one-grid rule."""
-    got = results[0][case]
     counts, x = _hot_tpu_sharded("block_drop_2d", inputs["drop"], over, STEPS, DT, res=24)
+    got = results[0][case]
     assert [c[0] for c in got["counts"]] == [c[0] for c in counts]
     cg_slack = 0 if case == "bj2" else 2
     assert abs(sum(c[1] for c in got["counts"]) - sum(c[1] for c in counts)) <= cg_slack
@@ -176,15 +201,15 @@ def test_sharded_step_matches_hot_tpu(results, inputs, case, over):
 
 
 def test_twisting_bar_step_matches_hot_tpu(results, inputs):
-    got = results[0]["bar2"]
     counts, x = _hot_tpu_sharded("twisting_bar_3d", inputs["bar"], None, 1, 1e-3, res=16,
                                  ppc=2)
+    got = results[0]["bar2"]
     assert got["counts"] == counts and counts[0][0] > 0
     np.testing.assert_allclose(got["state"]["x"], x, rtol=0, atol=1e-9)
 
 
 def _hot_tpu_migrating(fields):
-    scene = jbuild("block_drop_2d", res=32, dtype=jnp.float64)
+    scene = hot_tpu_scene("block_drop_2d", res=32, dtype=jnp.float64)
     state = JState(**{f: jnp.asarray(fields[f]) for f in FIELDS})
     state = state.replace(v=state.v + jnp.asarray(DRIFT)[None, :])
     sim = jss.ShardedSimulation(make_mesh((2,), ("x",)), scene["cfg"], state, scene["model"],
@@ -195,8 +220,8 @@ def _hot_tpu_migrating(fields):
 
 
 def test_migrating_step_and_checkpoints_match_hot_tpu(results, inputs, tmp_path):
-    got, tmp = results[0]["drift2"], results[1]
     sim = _hot_tpu_migrating(inputs["drift"])
+    got, tmp = results[0]["drift2"], results[1]
     assert got["migrated"] > 0 and sim.repartitions == 0
     np.testing.assert_allclose(got["state"]["x"], np.asarray(sim.state.x), rtol=0, atol=1e-9)
     # the port's shards, read by hot_tpu; hot_tpu's, read by the port
@@ -217,8 +242,8 @@ def test_migrating_step_and_checkpoints_match_hot_tpu(results, inputs, tmp_path)
     ("bj1", BJ, 24), ("bj2", BJ, 24), ("bj4", BJ, 24), ("overlap4", BJ, 24),
     ("qmg2", QMG, 24), ("qmg4", QMG, 24), ("c3_1", CONFIG3, 32), ("c3_2", CONFIG3, 32)])
 def test_sharded_step_matches_one_grid_step(results, inputs, case, over, res):
+    counts, x = _port_single_of("drop" if res == 24 else "drop32", tuple(over.items()), res)
     got = results[0][case]
-    counts, x = _port_single(inputs["drop" if res == 24 else "drop32"], over, res)
     assert [tuple(c) for c in got["counts"]] == counts and sum(c[0] for c in counts) >= STEPS
     np.testing.assert_allclose(got["state"]["x"], x, rtol=0, atol=1e-10)
     assert sum(got["ranks_particles"]) == x.shape[0]

@@ -14,7 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.sim import Simulation as JSimulation
 from hot_tpu.solver.cg import cg_solve as j_cg
 from hot_tpu.solver.cg import minres_solve as j_minres
@@ -27,7 +26,8 @@ from hot_tpu_torch.solver.cg import minres_solve as t_minres
 from hot_tpu_torch.solver.newton import newton_solve as t_newton
 from hot_tpu_torch.utils.config import config_from_overrides as t_overrides
 
-from test_torch_ref import SMALL, assert_close, carry_state, one_torch_thread, t2n  # noqa: F401
+from test_torch_ref import (SMALL, assert_close, carry_state, hot_tpu_scene,  # noqa: F401
+                            one_torch_thread, t2n)
 
 TOL = 1e-10
 
@@ -251,7 +251,7 @@ def test_plasticity_raises():
 def _bar_pair(overrides):
     """hot_tpu and port Simulations of the 16^3 twisting bar under the same
     config overrides, over the same particles."""
-    scene = jbuild("twisting_bar_3d", dtype=jnp.float64, **SMALL["twisting_bar_3d"])
+    scene = hot_tpu_scene("twisting_bar_3d", dtype=jnp.float64, **SMALL["twisting_bar_3d"])
     tscene = tbuild("twisting_bar_3d", device="cpu", dtype=torch.float64,
                     **SMALL["twisting_bar_3d"])
     jsim = JSimulation(j_overrides(scene["cfg"], overrides), scene["state"], scene["model"],

@@ -29,7 +29,6 @@ import torch
 from hot_tpu.grid import sparse as jsp
 from hot_tpu.models import constitutive as jcm
 from hot_tpu.ops import transfer as jtr
-from hot_tpu.scenes import build_scene as jbuild
 from hot_tpu.sim import capacity as jcapacity
 from hot_tpu.sim import Simulation as JSimulation
 from hot_tpu.sim import objective as jobj
@@ -45,7 +44,8 @@ from hot_tpu_torch.sim import objective as tobj
 from hot_tpu_torch.sim.state import FIELDS
 from hot_tpu_torch.utils.config import config_from_overrides as t_overrides
 
-from test_torch_ref import DT, SMALL, assert_close, carry_state, one_torch_thread, t2n  # noqa: F401
+from test_torch_ref import (DT, SMALL, assert_close, carry_state, hot_tpu_scene,  # noqa: F401
+                            one_torch_thread, t2n)
 
 TOL = 1e-10
 X_TOL = 1e-9
@@ -139,8 +139,8 @@ def test_plain_kernels_on_tile_grid_match_hot_tpu(rng, d):
     """The objective on compact ids (the linearize and apply's plain
     versions with the tile grid) against hot_tpu's XLA chain through its
     sparse_stencil."""
-    js = jbuild(SCENES[d], dtype=jnp.float64, **SMALL[SCENES[d]])["state"]
-    cfg = jbuild(SCENES[d], dtype=jnp.float64, **SMALL[SCENES[d]])["cfg"]
+    js = hot_tpu_scene(SCENES[d], dtype=jnp.float64, **SMALL[SCENES[d]])["state"]
+    cfg = hot_tpu_scene(SCENES[d], dtype=jnp.float64, **SMALL[SCENES[d]])["cfg"]
     res, dx = tuple(cfg.grid_res[:d]), cfg.dx
     F = np.asarray(js.F) + 0.1 * rng.standard_normal(js.F.shape)
     ts = carry_state(js.replace(F=jnp.asarray(F)))
@@ -182,7 +182,7 @@ def sparse_pair(name, overrides, j_extra=None, **kw):
     also under j_extra). hot_tpu plans its static capacities with headroom
     (grow 2), so its step compiles once instead of again after a regrow;
     capacities only pad."""
-    scene = jbuild(name, dtype=jnp.float64, **kw)
+    scene = hot_tpu_scene(name, dtype=jnp.float64, **kw)
     tscene = tbuild(name, device="cpu", dtype=torch.float64, **kw)
     ts = stress_state(carry_state(scene["state"]), tscene["cfg"])
     js = JState(**{f: jnp.asarray(t2n(getattr(ts, f))) for f in FIELDS})

@@ -4,11 +4,12 @@ file:// rendezvous), one torch thread each. This module imports torch and
 hot_tpu_torch only: neither jax nor hot_tpu.
 
 ``spawn(cases, world, tmp_path)`` runs every case on `world` ranks once
-and returns rank 0's results. A case is (name, world size of its mesh,
-kwargs); the ranks beyond a case's world size sit it out (its mesh is a
-subgroup of the first ranks). The ranks have `DEADLINE` seconds: past it
-they are killed and `spawn` raises, so a hung rank fails its test instead
-of holding the run to its clock.
+and returns rank 0's results; ``start`` starts the ranks and returns them
+(`Ranks`) without waiting, so the caller can work while they run. A case
+is (name, world size of its mesh, kwargs); the ranks beyond a case's world
+size sit it out (its mesh is a subgroup of the first ranks). The ranks
+have `DEADLINE` seconds: past it they are killed and `join` raises, so a
+hung rank fails its test instead of holding the run to its clock.
 """
 
 from __future__ import annotations
@@ -141,8 +142,10 @@ CASES = {"halo": case_halo, "cg": case_cg, "steps": case_steps, "cli": case_cli,
          "sleep": case_sleep}
 
 
-def _rank(rank, world, init, cases, out, deadline):
+def _rank(rank, world, init, cases_path, out, deadline):
     torch.set_num_threads(1)
+    with open(cases_path, "rb") as fh:
+        cases = pickle.load(fh)
     dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=deadline))
     sizes = sorted({w for _, w, _ in cases if w > 1})
@@ -161,24 +164,61 @@ def _rank(rank, world, init, cases, out, deadline):
     dist.destroy_process_group()
 
 
+class Ranks:
+    """Ranks started by `start`. `join` waits for them and returns rank 0's
+    results in the cases' order (waiting once); `close` kills any rank still
+    running."""
+
+    def __init__(self, ctx, out: str, world: int, deadline: float):
+        self._ctx, self._out, self._world, self._deadline = ctx, out, world, deadline
+        self._end = time.monotonic() + deadline
+        self._results = None
+
+    def join(self):
+        if self._results is None:
+            self._results = self._wait()
+        return self._results
+
+    def _wait(self):
+        ctx = self._ctx
+        while not ctx.join(timeout=max(0.0, self._end - time.monotonic())):
+            if time.monotonic() >= self._end:
+                self.close()
+                raise TimeoutError(f"{self._world} ranks still running after "
+                                   f"{self._deadline} s, killed; exit codes "
+                                   f"{[p.exitcode for p in ctx.processes]}")
+        with open(self._out, "rb") as fh:
+            return pickle.load(fh)
+
+    def close(self):
+        for p in self._ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in self._ctx.processes:
+            p.join()
+
+
+def start(cases, world: int, tmp_path, deadline: float = DEADLINE) -> Ranks:
+    """Start `cases` on `world` gloo ranks and return them (see `Ranks`).
+
+    The cases go to the ranks through a file: as a spawn argument they
+    would fill the pipe to each new process, and the start would wait for
+    each rank's interpreter in turn (seconds each) instead of starting all
+    at once."""
+    out = os.path.join(str(tmp_path), "results.pkl")
+    cases_path = os.path.join(str(tmp_path), "cases.pkl")
+    with open(cases_path, "wb") as fh:
+        pickle.dump(cases, fh)
+    init = f"file://{tmp_path}/rendezvous"
+    ctx = mp.start_processes(_rank, args=(world, init, cases_path, out, deadline),
+                             nprocs=world, join=False)
+    return Ranks(ctx, out, world, deadline)
+
+
 def spawn(cases, world: int, tmp_path, deadline: float = DEADLINE):
     """Run `cases` on `world` gloo ranks; rank 0's results, in order.
 
     A rank that fails fails the call (torch's ProcessContext.join stops the
     others). Ranks still running `deadline` seconds after the start are
     killed, and TimeoutError gives each rank's exit code."""
-    out = os.path.join(str(tmp_path), "results.pkl")
-    init = f"file://{tmp_path}/rendezvous"
-    ctx = mp.start_processes(_rank, args=(world, init, cases, out, deadline), nprocs=world,
-                             join=False)
-    end = time.monotonic() + deadline
-    while not ctx.join(timeout=max(0.0, end - time.monotonic())):
-        if time.monotonic() >= end:
-            for p in ctx.processes:
-                p.kill()
-            for p in ctx.processes:
-                p.join()
-            raise TimeoutError(f"{world} ranks still running after {deadline} s, killed; "
-                               f"exit codes {[p.exitcode for p in ctx.processes]}")
-    with open(out, "rb") as fh:
-        return pickle.load(fh)
+    return start(cases, world, tmp_path, deadline).join()
